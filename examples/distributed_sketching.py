@@ -1,7 +1,8 @@
 """Multi-chip sketching demo: one global operator, zero-communication
 generation, psum-only contraction.
 
-Runs on real multi-chip TPU or (default here) a virtual 8-device CPU mesh.
+Needs two or more devices: several GPUs, or on the CPU a virtual 8-device
+mesh (set here through XLA_FLAGS when it is not already set).
 Shows: mesh-shape invariance of the generated operator, the sharded
 sketch, and a distributed rangefinder step.
 
@@ -17,9 +18,11 @@ sys.path.insert(0, ".")
 
 import jax                                                       # noqa: E402
 
-if jax.devices()[0].platform not in ("cpu",) and len(jax.devices()) < 2:
-    # single-accelerator session: fall back to virtual CPU devices
-    jax.config.update("jax_platforms", "cpu")
+if len(jax.devices()) < 2:
+    raise SystemExit(
+        f"needs two or more devices, found {len(jax.devices())} "
+        f"({jax.default_backend()}); on the CPU run with "
+        "XLA_FLAGS=--xla_force_host_platform_device_count=8")
 
 import jax.numpy as jnp                                          # noqa: E402
 import numpy as np                                               # noqa: E402

@@ -6,9 +6,9 @@ localhost coordinator, builds the process-contiguous ('model', 'data')
 mesh from ``make_multihost_sketch_mesh``, and runs one
 ``distributed_sketch`` whose psum crosses the process boundary through
 XLA's gloo CPU collectives — the same program shape you would launch
-one-per-host on a DCN-connected TPU pod (see docs/distributed.md for
-the pod launch recipe; the only changes there are ``num_processes`` /
-``process_id`` coming from the scheduler and the backend being TPU).
+one-per-host on a multi-host GPU cluster (see docs/distributed.md for
+the launch recipe; the only changes there are ``num_processes`` /
+``process_id`` coming from the scheduler and the backend being GPU).
 
 Run: python examples/multihost_cpu_demo.py
 """
@@ -98,7 +98,7 @@ def main() -> None:
     if any(rc):
         raise SystemExit(f"worker exit codes: {rc}")
     print("both processes verified — see docs/distributed.md for the "
-          "TPU-pod launch recipe")
+          "multi-host launch recipe")
 
 
 if __name__ == "__main__":

@@ -44,8 +44,6 @@ def solve_preconditioned(A, b, seed=0, vec_nnz=8, d=None):
 def main():
     # f64 throughout: with cond(A) ~ 1e8, the R^-1 amplification sits at
     # the f32 noise floor — preconditioned iterations are an f64 method
-    # (on TPU the f64 products route through the int8-sliced MXU GEMM,
-    # ops/f64gemm.py)
     jax.config.update("jax_enable_x64", True)
     m, n = 20000, 400
     cond_target = 1e8

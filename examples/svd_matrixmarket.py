@@ -2,7 +2,7 @@
 
 End-to-end counterpart of the reference's sparse-low-rank-approx examples
 (qrcp_matrixmarket.cc:220-283, svd_matrixmarket.cc): load a .mtx file into
-a TPU-friendly sparse container (ELL), run a power-iteration rangefinder
+a fixed-width sparse container (ELL), run a power-iteration rangefinder
 with a choice of stabilization method (LU / QR / sketch-orthogonalize /
 none — the same menu as the reference's StabilizationMethod enum), then a
 QB -> SVD finish. Prints per-stage timings (TIMED_LINE analog) and
@@ -130,7 +130,7 @@ def main():
     path = args[0] if args else demo_mtx(
         os.path.join(DATA, "sparse_rank20.mtx"))
     print(f"loading {path} (device: {jax.devices()[0].platform})")
-    A = load_matrix_market(path, format="ell")   # ELL: the TPU perf format
+    A = load_matrix_market(path, format="ell")   # ELL: fixed-width rows
     print(f"A: {A.shape[0]}x{A.shape[1]}, nnz={A.nnz}")
     dense = np.asarray(A.to_dense())
     norm = np.linalg.norm(dense)

@@ -20,8 +20,7 @@ Pipeline shown:
 The reference library has no tensor tier; this rides its machinery
 (counter-addressed Gaussian sketches, HMT rangefinder) one level up.
 
-Run: python examples/tt_compression.py        (CPU by default;
-     pass --tpu to run on the default device)
+Run: python examples/tt_compression.py        (on JAX's default device)
 """
 
 import sys
@@ -30,10 +29,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, ".")
-
-if "--tpu" not in sys.argv:
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp                                        # noqa: E402
 

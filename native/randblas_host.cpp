@@ -98,7 +98,7 @@ inline void threefry4x32_block(const Ctr4 &ctr, const uint32_t key[4],
 }
 
 // ---------------------------------------------------------------------------
-// 64-bit CBRNG variants. TPU has no 64-bit integer lanes, so these live only
+// 64-bit CBRNG variants. JAX runs without x64 mode, so these live only
 // in the host engine; they close the reference's Random123 x64 surface
 // (vendored Random123 philox.h/threefry.h; KAT vectors replayed in
 // tests/test_rng_kat.py). All constants are the published Random123

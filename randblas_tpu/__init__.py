@@ -1,4 +1,4 @@
-"""randblas_tpu: a TPU-native sketching framework for randomized NLA.
+"""randblas_tpu: a JAX sketching framework for randomized NLA.
 
 A ground-up JAX/Pallas rebuild of the capabilities of RandBLAS (the
 BALLISTIC project's C++ sketching library): BLAS-like sketching of dense
@@ -7,9 +7,9 @@ whose entries are defined implicitly by counter-based RNGs, so operators
 can be regenerated anywhere — any submatrix, any device, any mesh shape —
 bit-identically and without communication.
 
-Compute path: jit/XLA + Pallas TPU kernels. Parallel path: jax.sharding
-meshes (the counter-addressable fill makes multi-chip generation
-embarrassingly parallel; only contractions reduce over ICI).
+Compute path: jit/XLA + a Pallas (Triton) kernel on the GPU. Parallel
+path: jax.sharding meshes (the counter-addressable fill makes multi-chip
+generation embarrassingly parallel; only contractions reduce).
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Dense sketching operators: distributions, operator objects, fill engine.
 
-TPU-native counterpart of RandBLAS/dense_skops.hh. The crucial invariants
+Counterpart of RandBLAS/dense_skops.hh. The crucial invariants
 carried over from the reference:
 
 1. *Counter addressing*: any submatrix of an implicit operator can be
@@ -162,7 +162,7 @@ def fill_dense_submat(
     if natural == Layout.ColMajor:
         # generate the transpose in row-major order (dense_skops.hh:494-498);
         # fill_colmajor computes that transpose natively in word planes
-        # (same values, ~7x faster on TPU — ops/dense_fill.py)
+        # (same values, no transpose pass — ops/dense_fill.py)
         ptr = ro_s + co_s * ma_len
         vals = fill_colmajor(ma_len, n_cols, n_rows, ptr, state, transform)
     else:
@@ -182,8 +182,9 @@ def _fill_submat_x64(dist, state, n_rows, n_cols, ro_s, co_s, dtype,
     produces native double streams (random_gen.hh:121-173,
     dense_skops.hh:97-170); this is its parity path. Generation happens
     on the HOST (the OpenMP C++ engine when built and ``use_native_x64``
-    allows, else vectorized numpy) because TPUs have no 64-bit integer
-    lanes — the reference's fill is host code too. The ColMajor-natural
+    allows, else vectorized numpy): the 64-bit-counter generators need
+    64-bit integer arithmetic, and the reference's fill is host code
+    too. The ColMajor-natural
     case fills the transposed parent row-major and flips, exactly the
     reference's omatcopy fallback (dense_skops.hh:523-530).
     """

@@ -3,8 +3,7 @@
 The reference's configuration surface is compile-time only
 (RandBLAS/config.h.in:1-55); this library's runtime dispatch policy
 lives in a handful of module-level flags (`skge.use_fused`,
-`skge.use_hiprec_f64`, `skge.use_pallas_fill`,
-`sparse_data.spmm.auto_blocked_ell`, `ops.ell_spmm.force_interpret`).
+`skge.use_hiprec_f64`, `dense.use_native_x64`).
 Setting them directly works but leaks across call sites; `flags(...)`
 scopes an override and guarantees restoration::
 
@@ -24,10 +23,6 @@ import contextlib
 _FLAG_HOMES = {
     "use_fused": "randblas_tpu.skge",
     "use_hiprec_f64": "randblas_tpu.skge",
-    "use_pallas_fill": "randblas_tpu.skge",
-    "use_saso_kernel": "randblas_tpu.skge",
-    "auto_blocked_ell": "randblas_tpu.sparse_data.spmm",
-    "force_interpret": "randblas_tpu.ops.ell_spmm",
     "use_native_x64": "randblas_tpu.dense",
 }
 
@@ -58,11 +53,8 @@ def flags(**overrides):
     """Context manager scoping dispatch-flag overrides.
 
     Accepted keys: use_fused ("auto"/True/False), use_hiprec_f64
-    ("auto"/True/False), use_pallas_fill (False/True/"interp"),
-    use_saso_kernel ("auto"/True/False/"interp"),
-    auto_blocked_ell (bool), force_interpret (bool),
-    use_native_x64 ("auto"/False). Values are restored
-    on exit even if the body raises.
+    ("auto"/True/False), use_native_x64 ("auto"/False). Values are
+    restored on exit even if the body raises.
     """
     saved = {name: get_flag(name) for name in overrides}
     try:

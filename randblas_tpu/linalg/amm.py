@@ -20,9 +20,9 @@ reference-exact streams of util.hh:285-306), so results are
 reproducible and the state chains like every other consumer. Reference:
 ABSENT as an algorithm (RandBLAS ships the sampler, not the consumer).
 
-TPU notes: the norms, CDF, gathers and the final GEMM are all one
-fused XLA graph — jittable end to end; the contraction runs on the MXU
-at (m, s) x (s, p). Use when n is huge and a full pass is affordable
+Accelerator notes: the norms, CDF, gathers and the final GEMM are all
+one fused XLA graph — jittable end to end; the contraction is one
+(m, s) x (s, p) GEMM. Use when n is huge and a full pass is affordable
 but the full O(m n p) product is not (s << n).
 """
 
@@ -91,7 +91,7 @@ def sample_lsq(a: jax.Array, b: jax.Array, s: int, state: RNGState, *,
     scores with uniform, ``p_i = lam * l_i / n + (1 - lam) / m``
     (the standard defense against under-estimated scores), rescaled by
     ``1 / sqrt(s * p_i)``, and the (s, n) subproblem is solved by the
-    TPU-safe damped QR. With s = O(n log n / eps) the solution is
+    damped QR (qb.qr_clipped_lstsq). With s = O(n log n / eps) the solution is
     (1 + eps)-quasi-optimal. ``scores`` lets callers reuse precomputed
     leverage scores (e.g. exact_leverage_scores, or across many right-
     hand sides); otherwise they are estimated with leverage_scores

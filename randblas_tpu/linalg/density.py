@@ -10,7 +10,7 @@ slq/logdet tier (quadrature.py). Library-tier consumer of the
 counter-addressed probe streams (reference ships the sampling
 primitives, util.hh:173-334; it has no estimator tier).
 
-Two routes, both one ``lax.scan`` of MXU block matvecs:
+Two routes, both one ``lax.scan`` of block matvecs:
 
 - ``spectral_density`` (SLQ): per probe, the Lanczos tridiagonal's
   eigenpairs give Gauss-quadrature nodes/weights for the probe's
@@ -22,8 +22,8 @@ Two routes, both one ``lax.scan`` of MXU block matvecs:
   state (cheaper per step than Lanczos at large depth; resolution
   ~ (spectrum width) / degree everywhere).
 
-TPU notes: all probes advance together as (n, p) block matvecs (the
-MXU sees one (n, p) GEMM per step, never p GEMVs); the Lanczos route
+Accelerator notes: all probes advance together as (n, p) block matvecs
+(one (n, p) GEMM per step, never p GEMVs); the Lanczos route
 reuses quadrature.py's reorthogonalized block recurrence; the KPM
 three-term recurrence needs no reorthogonalization at all (it is a
 fixed polynomial, not a basis build) so its scan carries two (n, p)

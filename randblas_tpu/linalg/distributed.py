@@ -77,10 +77,11 @@ def cholqr(y: jax.Array, *, iters: int = 2, shift: float = 0.0
     eps = jnp.finfo(dtype).eps
     r = None
     for _ in range(iters):
-        # the Gram at full precision: on TPU a plain f32 product runs
-        # bf16-on-MXU (~8e-3 relative), which would both degrade the
-        # factor AND swamp the eps-scale rescue shift below — the exact
-        # NaN the rescue exists to prevent. f64 keeps the hiprec route.
+        # the Gram at full precision: a default-precision f32 product
+        # runs with reduced-precision operands (TF32 on the GPU), which
+        # would both degrade the factor AND swamp the eps-scale rescue
+        # shift below — the exact NaN the rescue exists to prevent. f64
+        # keeps the library's f64 routing.
         g = _mm(y.T, y, dtype) if dtype == jnp.float64 \
             else _mm_precise(y.T, y)
         g = 0.5 * (g + g.T)
@@ -99,9 +100,8 @@ def cholqr(y: jax.Array, *, iters: int = 2, shift: float = 0.0
 
 
 def _mm(x, y, dtype):
-    """Matmul with the linalg tier's f64 routing (skge._matmul): f64
-    products go through the int8-sliced MXU GEMM on TPU instead of
-    XLA's emulated f64 matmul — same contract as qb._apply."""
+    """Matmul with the linalg tier's f64 routing (skge._matmul) — same
+    contract as qb._apply."""
     from ..skge import _matmul
     return _matmul(x, y, dtype)
 
@@ -282,7 +282,7 @@ def distributed_krylov_rangefinder(a: jax.Array, block: int,
     block x block Gram psum (the absorption eigh) — everything reduced
     is thin. Returns the orthonormal basis, width <= block*(depth+1)
     (the rank cutoff stops growth once the range is captured; see
-    krylov_rangefinder's docstring for the TPU-precision caveat).
+    krylov_rangefinder's docstring for the reduced-precision caveat).
     """
     m, n = a.shape
     require(block >= 1, "block must be >= 1")

@@ -10,8 +10,8 @@ Same consumer shape as the reference's examples tier pipelines
 (/root/reference/examples/sparse-low-rank-approx/svd_rank1_plus_noise.cc:217-300),
 upgraded from SVD to a one-sided symmetric factorization.
 
-TPU notes: the rangefinder rides sketch_general's fused/staged dispatch;
-the only non-MXU-shaped steps are the k x k eigh and the final thin
+Accelerator notes: the rangefinder rides sketch_general's dispatch;
+the only non-GEMM-shaped steps are the k x k eigh and the final thin
 products.
 """
 
@@ -73,8 +73,7 @@ def rand_geigh(a, b, k: int, state: RNGState, power_iters: int = 2,
     unchanged. C is never formed: every product the rangefinder needs is
     ``C @ X = L^-1 (A (L^-T X))`` — two triangular solves against the
     k-column block plus one A-apply, O(n^2 k) per pass instead of the
-    O(n^3) explicit whitening (measured on v5e at n=8192, k=32: 74.4
-    ms/solve explicit vs the implicit form's, see BENCH_LOCAL.md).
+    O(n^3) explicit whitening.
     ``operator`` is accepted for signature parity with rand_eigh but
     only 'gaussian' is supported (structured embeddings need a
     materialized operand).

@@ -6,10 +6,9 @@ kernel — so kernel methods become LINEAR methods on D features: kernel
 ridge regression at n = millions runs as ridge_lsq on an (n, D) feature
 matrix instead of an n x n kernel solve.
 
-TPU-native: the W X^T product IS a sketch — it rides sketch_general's
-fused dispatch (the Gaussian frequency matrix is generated inside the
-Pallas GEMM from counters, never materialized in HBM, for large
-feature counts), and the phases b come from the Uniform stream of the
+The W X^T product IS a sketch — it rides sketch_general's dispatch (on
+the GPU the Gaussian frequency matrix can be generated inside the
+RNG-in-GEMM kernel from counters, never materialized), and the phases b come from the Uniform stream of the
 SAME seed-chained state machinery as every operator. The reference has
 no feature tier; this is the canonical ML consumer of its primitives.
 """

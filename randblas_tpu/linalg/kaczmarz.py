@@ -4,9 +4,9 @@ and randomized block Gauss–Seidel (coordinate descent).
 Library-tier consumers of the counter-based sampling streams
 (util.weights_to_cdf + util.sample_indices_iid — the machinery the
 reference ships in util.hh:173-334; the reference has the sampler, not
-these consumers). The TPU-native design choice is BLOCKS: single-row
+these consumers). The design choice is BLOCKS: single-row
 Kaczmarz (Strohmer–Vershynin 2009) is a latency-bound scalar update, a
-shape no MXU can love — sampling a block of rows per step turns each
+shape no matrix unit can love — sampling a block of rows per step turns each
 update into a gather + two thin GEMMs + one small Cholesky-style solve,
 and the expected per-sweep contraction rate improves with block size
 (Needell–Tropp 2014). All sampling happens UPFRONT from the chained
@@ -145,17 +145,15 @@ def block_gauss_seidel(a: jax.Array, b: jax.Array, state: RNGState, *,
     for full-column-rank A, consistent or not. Returns
     ``(x, next_state)``.
 
-    ``sampling`` picks how blocks are chosen — the TPU-native default
-    is ``'shuffle'``: ONE counter-addressed random permutation of the
+    ``sampling`` picks how blocks are chosen — the default is
+    ``'shuffle'``: ONE counter-addressed random permutation of the
     columns per solve, then cyclic sweeps over the fixed partition of
     the permuted A^T. The fixed partition lets each block's damped
     Gram inverse be computed once and reused every sweep, so a step is
-    just three GEMVs: measured 19.6 ms at 65536x1024/block-512/48
-    steps vs 45.5 ms recomputing the Gram per step (same-run probe,
-    benchmarks/kaczmarz_probe.py) — and iid index gathers
-    (``'colnorm'`` — LL10's importance weighting — or ``'uniform'``)
-    are slower still (TPU gathers run far below copy bandwidth, and
-    fresh indices per step mean per-step Grams). Solution quality is
+    just three GEMVs instead of a Gram + Cholesky per step — and iid
+    index gathers (``'colnorm'`` — LL10's importance weighting — or
+    ``'uniform'``) mean fresh indices, hence a fresh Gram, every
+    step. Solution quality is
     the same — shuffled sweeps also visit every column per sweep (no
     duplicates), which in practice contracts at least as fast as iid
     draws. Use the iid modes when LL10's importance-sampling theory is
@@ -219,11 +217,8 @@ def _gauss_seidel_shuffle(a, x_init, r_init, state: RNGState,
 
     The fixed partition means each block's damped Gram inverse is
     computed ONCE and reused every sweep — the sweeps' per-step work
-    collapses to two (block, m) GEMVs + one (block, block) GEMV.
-    Measured on v5e at 65536x1024/block-512/48-steps (same-run probe,
-    benchmarks/kaczmarz_probe.py): per-step Gram + chol 45.5 ms,
-    precomputed inverses 19.6 ms — and the Gram GEMM is the FLOP bulk,
-    so it runs at DEFAULT precision (preconditioner role: the fixed
+    collapses to two (block, m) GEMVs + one (block, block) GEMV. The
+    Gram GEMM is the FLOP bulk, so it runs at DEFAULT precision (preconditioner role: the fixed
     point is pinned by rhs and the residual update, which stay at
     HIGHEST; the on-chip test asserts final accuracy). Explicit
     inverses (not stored factors) are fine for the same reason, and

@@ -11,10 +11,10 @@ last one: strictly more accuracy per matvec, at the cost of a wider
 (m, b*(q+1)) QR. The reference has no Krylov tier at all; this extends
 its QB family the way RandLAPACK does.
 
-TPU notes: each Krylov step is two GEMM-shaped products (rides the
-fused/SpMM dispatch through qb._apply, including the f64 hiprec
-routing); the per-step re-orthogonalization is two block Gram-Schmidt
-passes + one thin QR — all (m, b)-shaped MXU work, no host round trips.
+Accelerator notes: each Krylov step is two GEMM-shaped products (rides
+the dense/SpMM dispatch through qb._apply, including the f64 routing);
+the per-step re-orthogonalization is two block Gram-Schmidt passes + one
+thin QR — all (m, b)-shaped GEMM work, no host round trips.
 """
 
 from __future__ import annotations
@@ -53,9 +53,9 @@ def krylov_rangefinder(a, block: int, state: RNGState, *, depth: int = 2,
     therefore AT MOST block*(depth+1): once A's range is captured to
     working precision the basis stops growing.
 
-    On TPU the big A-products run bf16-on-MXU for throughput, so their
-    ~1e-2-relative rounding usually keeps late blocks above the rank
-    cutoff — the basis then reaches its full width with (orthonormal,
+    On an accelerator the big A-products run at reduced precision (TF32
+    on the GPU) for throughput, so their rounding can keep late blocks
+    above the rank cutoff — the basis then reaches its full width with (orthonormal,
     harmless) noise directions rather than stopping early; the early
     stop engages under f64, on CPU, or when A's action is exact.
     """
@@ -90,9 +90,9 @@ def krylov_rangefinder(a, block: int, state: RNGState, *, depth: int = 2,
     for _ in range(depth):
         y = _apply(a, _apply_t(a, prev))
         pre_scale = float(jnp.max(jnp.linalg.norm(y, axis=0)))
-        # projections at full precision: on TPU the bf16 MXU rounding of
-        # a plain product would leave ~1e-2-relative ghosts of captured
-        # directions above the rank cutoff (see qb._mm_precise)
+        # projections at full precision: reduced-precision rounding of a
+        # default product would leave ghosts of captured directions
+        # above the rank cutoff (see qb._mm_precise)
         y = y - _mm_precise(basis, _mm_precise(basis.T, y))
         y = y - _mm_precise(basis, _mm_precise(basis.T, y))
         ur, sr, _ = safe_svd(y, full_matrices=False)

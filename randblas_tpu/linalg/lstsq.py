@@ -12,13 +12,11 @@ tls_dense_skop.cc:101-203):
     probability, so the iteration converges in a few dozen steps
     independent of cond(A), to full solver accuracy.
 
-TPU notes: the sketch rides sketch_general / sketch_sparse dispatch
-(fused or one-hot SASO panels — the operator never hits HBM); CGLS is a
-lax.while_loop of two GEMV-shaped products; block right-hand sides get
-per-column step sizes so the whole block converges in one loop. f64
-products route through the int8-sliced MXU GEMM (ops/f64gemm.py), which
-is what makes preconditioned iterations (an f64 method once cond(A) is
-large) viable at MXU speed.
+Accelerator notes: the sketch rides sketch_general / sketch_sparse
+dispatch; CGLS is a lax.while_loop of two GEMV-shaped products; block
+right-hand sides get per-column step sizes so the whole block converges
+in one loop. f64 products follow the library's f64 routing (native f64
+by default).
 """
 
 from __future__ import annotations
@@ -303,8 +301,8 @@ def sketch_and_precondition(a, b, state: RNGState, *, d: Optional[int] = None,
     iterations for free (the sketch and its QR are already paid for).
 
     Returns ``(x, cgls_iterations, next_state)``. For ill-conditioned
-    systems run under float64 (jax.config.update("jax_enable_x64", True));
-    the f64 products ride the int8-sliced MXU GEMM.
+    systems run under float64 (jax.config.update("jax_enable_x64",
+    True)).
 
     With ``mesh``, A stays m-sharded over the mesh's 'data' axis through
     BOTH phases: the preconditioner sketch runs through the parallel
@@ -363,9 +361,8 @@ def min_norm_lsq(a, b, state: RNGState, *, d: Optional[int] = None,
     Accuracy: the SOLUTION error ||x - x*|| reaches ~100*eps of the
     working dtype regardless of cond(A) (the preconditioned system is
     O(1)-conditioned), but the residual ||A x - b|| amplifies x-error by
-    sigma_max, i.e. holds only to ~cond(A)*eps. Run under float64
-    (products ride the int8-sliced MXU GEMM) when the residual itself
-    must be small.
+    sigma_max, i.e. holds only to ~cond(A)*eps. Run under float64 when
+    the residual itself must be small.
     """
     m, n = a.shape
     require(m <= n, "min_norm_lsq expects a wide system (m <= n); "
@@ -567,7 +564,7 @@ def ihs_lsq(a, b, state: RNGState, *, d: Optional[int] = None,
 
     def grad(x):
         # A^T (A x - b) at certificate precision: the update is
-        # H_S^{-1} grad, so bf16 noise in the gradient lands directly in
+        # H_S^{-1} grad, so reduced-precision noise in the gradient lands in
         # the iterate and floors the achievable solution error; these
         # are thin (k-column) products, HIGHEST is bandwidth-free.
         res = _apply_precise(a, x) - bb

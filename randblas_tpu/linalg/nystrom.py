@@ -8,9 +8,9 @@ of the sketching core (the reference's examples tier builds the same
 kind of pipelines on lskge3, e.g.
 /root/reference/examples/sparse-low-rank-approx/svd_rank1_plus_noise.cc:217-300).
 
-TPU notes: the (n, d) sketch Y = A @ S rides sketch_general's fused /
-staged dispatch (the operator is never materialized for large A); the
-d x d Cholesky + triangular solve are the only non-MXU-shaped steps and
+Accelerator notes: the (n, d) sketch Y = A @ S rides sketch_general's
+dispatch; the d x d Cholesky + triangular solve are the only
+non-GEMM-shaped steps and
 run at O(d^2 n) <<< the sketch cost.
 """
 

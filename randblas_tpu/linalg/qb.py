@@ -1,6 +1,6 @@
 """QB decomposition / randomized rangefinder with power iteration.
 
-TPU-native counterpart of the reference's sparse-low-rank-approx examples
+Counterpart of the reference's sparse-low-rank-approx examples
 (svd_rank1_plus_noise.cc:217-300, qrcp_matrixmarket.cc:220-283): sketch the
 range of A with an implicit Gaussian operator, stabilize with QR between
 power-iteration passes, then compress. Works for dense (jnp array) and
@@ -30,11 +30,9 @@ def _is_sparse(a) -> bool:
 
 
 def _apply(a, x):
-    """a @ x for dense or sparse a. Dense f64 products route through the
-    int8-sliced MXU GEMM on TPU (skge._matmul / use_hiprec_f64 policy) —
-    XLA's emulated f64 matmul is orders of magnitude off the MXU, and
-    the iterative consumers here (CGLS, power iteration) are exactly the
-    f64-on-TPU workloads."""
+    """a @ x for dense or sparse a. Dense products go through
+    skge._matmul, so f64 follows the library's use_hiprec_f64 policy
+    (native f64 unless the int8-sliced GEMM is forced)."""
     if _is_sparse(a):
         return left_spmm(a, x)
     from ..skge import _matmul
@@ -50,13 +48,13 @@ def _apply_t(a, x):
 
 
 def _mm_precise(x, y):
-    """Full-precision matmul for the certificate/adaptive paths. On TPU,
-    plain f32 matmuls run bf16-on-MXU (~8e-3 relative rounding), which
-    floors residuals of captured ranges at 1e-2 of ||A|| — the adaptive
-    loop then can never certify a tighter tol and absorbs junk blocks
-    to its cap (observed on-chip: basis at the 256-column limit, bound
-    4330). Precision.HIGHEST forces the 3-pass f32 MXU path; these are
-    thin (m, k) x (k, b) products, so the 3x is negligible."""
+    """Full-precision matmul for the certificate/adaptive paths. A
+    default-precision f32 product runs with reduced-precision operands
+    on an accelerator (TF32 on the GPU, ~5e-4 relative rounding), which
+    floors residuals of captured ranges well above a tight tol — the
+    adaptive loop then can never certify it and absorbs junk blocks to
+    its cap. Precision.HIGHEST forces full f32; these are thin
+    (m, k) x (k, b) products, so the extra cost is negligible."""
     return jnp.matmul(x, y, precision=jax.lax.Precision.HIGHEST,
                       preferred_element_type=y.dtype)
 
@@ -74,11 +72,10 @@ def make_matvec(a):
     """``v -> A @ v`` on (n,) vectors for dense / sparse / callable A,
     with the round-4 precision policy shared by the Krylov consumers
     (sgmres, sketched_eigs): dense sub-f64 products run at
-    Precision.HIGHEST — a matvec is HBM-bandwidth-bound, so the 3-pass
-    f32 MXU product is free, while the TPU's default bf16 product
+    Precision.HIGHEST — a matvec is memory-bandwidth-bound, so the
+    full-f32 product is free, while a reduced-precision default product
     visibly corrupts Krylov bases (caught on chip by the sgmres
-    hardware test) — and dense f64 routes through the hiprec
-    int8-sliced GEMM via _apply. Callers cast the output to their basis
+    hardware test) — and dense f64 goes through _apply. Callers cast the output to their basis
     dtype (the Arnoldi loop body does; ADVICE r3)."""
     if callable(a):
         return a
@@ -92,17 +89,11 @@ def safe_svd(x: jax.Array, full_matrices: bool = False):
     """``jnp.linalg.svd`` with the x64 trace context scoped OFF for
     sub-f64 inputs.
 
-    Measured on v5e (round 4, tests/test_tpu_hardware.py +
-    /tmp probes): with ``jax_enable_x64`` enabled, the TPU compiler
-    SIGABRTs ("Check failed: buffer != nullptr" in TransposeFolding)
-    on the SVD graph for BOTH tall and wide f32 inputs — the x64 mode
-    switches the lowering's index dtypes to int64 and that graph
-    variant crashes the pass. The same shapes compile and run fine
-    with x64 off, and QR/eigh are unaffected. Since x64 mode changes
-    only index types for f32 DATA, scoping it off around the trace is
-    value-identical and unblocks every SVD consumer (rsvd, nystrom,
-    sketched_eigs, streaming, ...) for x64-enabled sessions.
-    f64 inputs keep the x64 context (disabling would downcast)."""
+    x64 mode changes only index types for f32 DATA, so scoping it off
+    around the trace is value-identical; it keeps the SVD graph of
+    every SVD consumer (rsvd, nystrom, sketched_eigs, streaming, ...)
+    the same in x64-enabled sessions as elsewhere. f64 inputs keep the
+    x64 context (disabling would downcast)."""
     if x.dtype == jnp.float64:
         return jnp.linalg.svd(x, full_matrices=full_matrices)
     with jax.enable_x64(False):
@@ -121,18 +112,16 @@ def qr_clipped_lstsq(a: jax.Array, b: jax.Array) -> jax.Array:
     divides by ~0. (Plain unpivoted-QR column dropping is NOT valid
     here: row i of R still constrains the later variables.)
 
-    This replaces ``jnp.linalg.lstsq`` on the sketched-solve paths:
-    lstsq's SVD-based route SIGABRTs the TPU compiler ("Check failed:
-    buffer != nullptr" in HloOptimize) at the sgmres shapes — caught by
-    tests/test_tpu_hardware.py::test_sgmres_pipeline_on_hardware, round
-    4 — while Householder QR compiles and runs fine.
+    This replaces ``jnp.linalg.lstsq`` on the sketched-solve paths: the
+    damping gives the rank-deficient (breakdown) bases a smooth cutoff
+    with one Householder QR and no SVD.
     ``b`` may be a vector or a matrix of stacked right-hand sides."""
     m = a.shape[1]
     # tiny floor ON THE PRODUCT: an all-zero `a` would give lam == 0, a
     # rank-0 damped system, and 0/0 in the triangular solve (review
-    # find, round 4). The floor must be the smallest NORMAL float —
-    # flooring the norm instead leaves eps*m*tiny subnormal, which the
-    # TPU/XLA flush to zero, resurrecting the NaN. With the floor the
+    # find). The floor must be the smallest NORMAL float — flooring the
+    # norm instead leaves eps*m*tiny subnormal, which an accelerator may
+    # flush to zero, resurrecting the NaN. With the floor the
     # zero system solves to y == 0 exactly, matching lstsq.
     lam = jnp.maximum(jnp.finfo(a.dtype).eps * m * jnp.linalg.norm(a),
                       jnp.finfo(a.dtype).tiny)
@@ -140,18 +129,17 @@ def qr_clipped_lstsq(a: jax.Array, b: jax.Array) -> jax.Array:
     zeros = jnp.zeros((m,) + b.shape[1:], b.dtype)
     rhs = jnp.concatenate([b, zeros])
     q, r = jnp.linalg.qr(aug)
-    # HIGHEST: the projection is a thin product, and its default bf16
-    # MXU rounding (~4e-3 relative) would dominate the solve's accuracy
+    # HIGHEST: the projection is a thin product, and reduced-precision
+    # default rounding would dominate the solve's accuracy
     qtb = jnp.matmul(q.T, rhs, precision=jax.lax.Precision.HIGHEST)
     return jax.scipy.linalg.solve_triangular(r, qtb, lower=False)
 
 
 def _orth(y: jax.Array, how: str) -> jax.Array:
     """Tall-skinny orthonormalization for the rangefinder family.
-    'cholqr' (default) = rescued CholQR2 — all-GEMM, measured 1.9x
-    faster end to end than Householder on v5e (rsvd 32768x4096 rank
-    256: 12.8 vs 23.5 ms, matching singular values); 'qr' = Householder,
-    unconditionally stable, for extreme-conditioning edge cases."""
+    'cholqr' (default) = rescued CholQR2 — all-GEMM, no sequential
+    Householder panel; 'qr' = Householder, unconditionally stable, for
+    extreme-conditioning edge cases."""
     if how == "cholqr":
         from .distributed import cholqr
         q, _ = cholqr(y)
@@ -197,7 +185,7 @@ def rangefinder(a, k: int, state: RNGState, power_iters: int = 2,
     sketch becomes A @ S^T with S a (k, n) operator, so 'srht' costs
     O(mn log n) instead of the dense 2mnk — cheaper whenever
     k > log2(n)/2, i.e. essentially always. ``orth`` picks the FINAL
-    orthonormalizer (see _orth; 'cholqr' is ~2x faster on TPU).
+    orthonormalizer (see _orth; 'cholqr' is all-GEMM).
     ``stabilizer`` picks the BETWEEN-pass scheme ('cholqr' | 'qr' |
     'lu' | 'none', default = same as orth) — the stabilization-variant
     menu of the reference's QRCP example (qrcp_matrixmarket.cc:220-283);

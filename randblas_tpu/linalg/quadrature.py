@@ -14,12 +14,11 @@ This is the missing spectral-function member of the trace tier
 quadrature). The reference has no estimator tier at all — its users
 build exactly these pipelines on the sketching primitives.
 
-TPU notes: the Lanczos recurrence is a lax.scan of matvecs (rides
-qb._apply's dispatch incl. the f64 hiprec GEMM); all probes run the
-recurrence as ONE blocked matvec per step (the (n, probes) block keeps
-the MXU busy where a per-probe loop would issue GEMVs); full
-reorthogonalization against the stored basis is O(n * steps^2 * probes)
-MXU work at Precision.HIGHEST — negligible next to the matvecs, and
+Accelerator notes: the Lanczos recurrence is a lax.scan of matvecs
+(rides qb._apply's dispatch incl. the f64 routing); all probes run the
+recurrence as ONE blocked matvec per step (one (n, probes) GEMM where a
+per-probe loop would issue GEMVs); full reorthogonalization against the
+stored basis is O(n * steps^2 * probes) GEMM work at Precision.HIGHEST — negligible next to the matvecs, and
 without it f32 Lanczos loses orthogonality by step ~20 and the
 quadrature nodes go complex-ghost.
 """

@@ -11,11 +11,11 @@ GS loses orthogonality. Stability costs only sketched (d-length)
 inner products instead of m-length ones.
 
 Where it sits in the tier: `cholqr` (distributed.py) is the fast path
-for the well-conditioned tall-skinny case (one Gram psum, MXU-bound);
+for the well-conditioned tall-skinny case (one Gram psum, GEMM-bound);
 ``rgs_qr`` is the ill-conditioned/stability path, and the natural QR
 for very ill-conditioned Krylov or power-iteration bases.
 
-TPU-native shape of the algorithm (not the paper's column loop):
+Accelerator shape of the algorithm (not the paper's column loop):
 
 - S A is computed ONCE through the fused sketch dispatch. Sketching is
   linear, so the sketched panels never need re-sketching: every
@@ -26,7 +26,7 @@ TPU-native shape of the algorithm (not the paper's column loop):
   sketch space because the sketched basis SQ is EXACTLY orthonormal by
   construction (Q_panel = P Rs^{-1} gives S Q_panel = Qs from
   qr(S P), to roundoff) — then the panel is orthonormalized by the
-  tiny (d, block) QR. All m-length work is MXU GEMMs against the
+  tiny (d, block) QR. All m-length work is GEMMs against the
   (m, k) buffer; the only small-op per panel is one (d, block) QR.
 - The growing basis lives in FIXED (m, k) / (d, k) buffers whose
   unfilled columns are zero: projections against zero columns are
@@ -111,15 +111,14 @@ def _precise_sketch(S, a: jax.Array, scale: float) -> jax.Array:
     RGS is the one consumer whose CORRECTNESS depends on sketch
     fidelity: the full-space basis is built from sketch-space
     coefficients, so sketch noise at delta * ||A|| wipes out every
-    singular direction below delta — and the TPU's default sketch paths
-    (fused Pallas kernel, staged GEMM, one-hot SASO panels) all
-    contract in bf16 (delta ~ 4e-3). Caught ON CHIP by
-    test_tpu_hardware.py::test_rgs_qr_on_hardware at cond 3e7: the
-    interpret/CPU tiers ran the sketch in f32 and passed while the
-    compiled bf16 sketch produced a garbage basis (the CPU repro:
-    bf16-rounding SA alone turns orth ~1e-6 into NaN). The
+    singular direction below delta — and an accelerator's default
+    sketch paths contract at reduced precision (TF32 on the GPU). Caught
+    ON CHIP by the hardware tier's test_rgs_qr_on_hardware at cond 3e7:
+    the interpret/CPU tiers ran the sketch in f32 and passed while a
+    compiled reduced-precision sketch produced a garbage basis (the CPU
+    repro: bf16-rounding SA alone turns orth ~1e-6 into NaN). The
     preconditioner consumers (sketch_and_precondition, sgmres) tolerate
-    bf16 sketches by construction — their iterates touch the TRUE A —
+    reduced-precision sketches by construction — their iterates touch the TRUE A —
     so this precise path is local to RGS, not a dispatch-wide change.
 
     Structured families stay structured: SRHT applies its Hadamard

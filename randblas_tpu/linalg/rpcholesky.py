@@ -15,8 +15,8 @@ and the consumed stream is seed-chained like every other consumer (the
 reference's inverse-CDF sampler, /root/reference/RandBLAS/util.hh:285-306,
 is the same primitive; the reference ships no RPCholesky).
 
-TPU notes: each block step is one (n, b) column gather, one (n, r)x(r, b)
-GEMM, and one b x b eigh — MXU-shaped except the tiny eigh. The pivot
+Accelerator notes: each block step is one (n, b) column gather, one (n, r)x(r, b)
+GEMM, and one b x b eigh — GEMM-shaped except the tiny eigh. The pivot
 Gram block is inverted through eigh with relative clipping rather than
 Cholesky, so duplicate pivots inside a block (possible: the draw is iid)
 only shed the redundant directions instead of breaking a triangular
@@ -111,11 +111,10 @@ def rpcholesky(a, rank: int, state: RNGState, *, block: int = None,
         g = cols_of(idx).astype(dtype)                       # (n, bt)
         # Downdates at Precision.HIGHEST: the residual diagonal feeds
         # the pivot distribution and the Gram clipping threshold, and
-        # bf16-on-MXU rounding (~8e-3 relative) otherwise floors the
-        # factorization error at ~1e-1 on hardware while every CPU test
-        # passes (memory/tpu-mxu-precision-floor.md; observed in the
-        # round-3 TPU smoke). These are thin (n, r) x (r, b) products —
-        # the 3-pass cost is negligible.
+        # reduced-precision default rounding otherwise floors the
+        # factorization error at ~1e-1 on an accelerator while every CPU
+        # test passes. These are thin (n, r) x (r, b) products — the
+        # full-f32 cost is negligible.
         g = g - _mm_precise(f, jnp.take(f, idx, axis=0).T)
         h = jnp.take(g, idx, axis=0)                         # (bt, bt)
         fb = _mm_precise(g, _inv_sqrt_psd(h))                # (n, bt)

@@ -27,8 +27,8 @@ def rsvd(a, rank: int, state: RNGState, oversample: int = 8,
     ``power_iters`` subspace iterations sharpen the tail (HMT 2011
     recommends 5-10 and 1-2 respectively). ``operator`` picks the
     rangefinder embedding ('gaussian' | 'saso' | 'srht'; see
-    rangefinder); ``orth`` the orthonormalizer ('cholqr' ~2x faster on
-    TPU, 'qr' for extreme conditioning)."""
+    rangefinder); ``orth`` the orthonormalizer ('cholqr' all-GEMM, 'qr'
+    for extreme conditioning)."""
     n_rows, n_cols = a.shape
     k = rank + oversample
     require(rank >= 1, "rank must be >= 1")

@@ -18,15 +18,13 @@ systems; the reference ships no iterative solvers at all — its examples
 stop at TLS, which this module's sketch rides the same lskge3 dispatch
 as).
 
-TPU notes: the basis build is a lax.fori_loop whose body is one matvec
+Accelerator notes: the basis build is a lax.fori_loop whose body is one matvec
 plus a k-vector orthogonalization window (dynamic_slice over the basis
 buffer; unfilled slots are zero and orthogonalizing against them is a
 no-op, so the window needs no masking). The (d, m) sketch of the basis
-rides sketch_general (fused / SASO panels — S never hits HBM), and the
-small solve is one rank-clipped Householder-QR lstsq on a d x m matrix
-(qb.qr_clipped_lstsq — jnp.linalg.lstsq's SVD route crashes the TPU
-compiler at these shapes), robust to the near-dependence a truncated
-basis develops.
+rides sketch_general, and the small solve is one rank-clipped
+Householder-QR lstsq on a d x m matrix (qb.qr_clipped_lstsq), robust to
+the near-dependence a truncated basis develops.
 """
 
 from __future__ import annotations
@@ -149,18 +147,18 @@ def sgmres(a, b: jax.Array, state: RNGState, *, basis: int = 50,
     residual estimate is ||S(A x - b)|| / ||S b|| — within the
     embedding distortion (~ sqrt(m/d)) of the true relative residual.
     Accuracy is quasi-optimal over the subspace; for ill-conditioned A
-    increase ``basis`` or run under float64 (matvecs then ride the
-    int8-sliced MXU GEMM through the sparse/dense apply layer).
+    increase ``basis`` or run under float64.
 
     ``refine`` (default 1) adds that many iterative-refinement passes
     over the SAME basis: sketch the true residual ``b - A x``, solve the
     small LS problem again, correct x. Each pass costs one matvec + one
     tail sketch and multiplies the recoverable error by the solve's
     contraction factor (~1e-3 here), so one pass pins the true residual
-    to the subspace optimum even on TPU, where the tail sketch's bf16
-    MXU products otherwise leave a ~1e-3 component of the residual
-    inside range(AQ) (measured on chip — the hardware sgmres test sat
-    at 1.7e-3 vs the 1e-3 bound before refinement).
+    to the subspace optimum even where the tail sketch's
+    reduced-precision products would otherwise leave a ~1e-3 component
+    of the residual inside range(AQ) (measured on an accelerator — the
+    hardware sgmres test sat at 1.7e-3 vs the 1e-3 bound before
+    refinement).
     """
     require(b.ndim == 1, "sgmres expects a single right-hand side (n,)")
     n = b.shape[0]
@@ -176,8 +174,8 @@ def sgmres(a, b: jax.Array, state: RNGState, *, basis: int = 50,
     _warn_thin_embedding(d, m, n, d_was_default)
 
     # shared dense/sparse/callable dispatch + the HIGHEST-precision
-    # policy for dense matvecs (see qb.make_matvec — the default bf16
-    # product corrupts the Krylov basis, caught by the on-chip test)
+    # policy for dense matvecs (see qb.make_matvec — a reduced-precision
+    # default product corrupts the Krylov basis, caught by the on-chip test)
     matvec = make_matvec(a)
     bb = b.astype(dtype) if dtype is not None else b
     q, aq = _truncated_arnoldi(matvec, bb, m, k)

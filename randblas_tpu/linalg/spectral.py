@@ -1,7 +1,7 @@
 """Randomized spectral estimation: power method, extremal eigenvalues,
 spectral norm.
 
-TPU-native port of the reference's power-method machinery, which lives
+Port of the reference's power-method machinery, which lives
 in its TEST infrastructure (/root/reference/test/handrolled_lapack.hh:
 214-231 required_powermethod_iters, :233-252 power_method, :254-303
 exeigs_powermethod) and backs the subspace-distortion statistical tier
@@ -176,7 +176,7 @@ def sketched_eigs(a, k: int, state: RNGState, *, basis: int = None,
     selects 'LM' (largest magnitude) or 'LR' (largest real part).
 
     ``sym=False``: the m x m Ritz eigenproblem is NONSYMMETRIC and runs
-    on the host (np.linalg.eig — XLA has no general eig on TPU; the
+    on the host (np.linalg.eig — XLA's general eig is CPU-only; the
     matrix is tiny). Returns complex ``(theta (k,), x (n, k), resid (k,),
     next_state)`` with ``resid`` the sketched relative residuals
     ||S(A x - theta x)|| / (|theta| ||S x||).
@@ -229,9 +229,9 @@ def sketched_eigs(a, k: int, state: RNGState, *, basis: int = None,
         keep = s > cutoff
         s_inv = jnp.where(keep, 1.0 / jnp.maximum(s, cutoff), 0.0)
         # thin products at certificate precision (_mm_precise): their
-        # default bf16 rounding (~4e-3) would land directly on h and
-        # the Ritz pairs, wasting the HIGHEST-precision matvecs above
-        # (review find, round 4)
+        # reduced-precision default rounding would land directly on h
+        # and the Ritz pairs, wasting the HIGHEST-precision matvecs
+        # above (review find)
         au = _mm_precise(aq, vt.T * s_inv[None, :])            # A U, (n, m)
         h = _mm_precise(u.T, au)
         h = jnp.where(keep[:, None] & keep[None, :],

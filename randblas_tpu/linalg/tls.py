@@ -1,6 +1,6 @@
 """Total least squares: classical and sketch-and-solve.
 
-TPU-native counterpart of the reference's total-least-squares examples
+Counterpart of the reference's total-least-squares examples
 (tls_dense_skop.cc:101-203, tls_sparse_skop.cc): sketch [A b] down to
 d ~= 2(n+1) rows, then solve the small TLS problem by SVD.
 """

@@ -41,8 +41,8 @@ def _as_matvec_pair(a, n: int, rmatvec=None):
     (A.T @ X served by `a` itself) — the XDiag docstring spells this
     out. Dense sub-f64 transpose applies run at Precision.HIGHEST: the
     leave-one-out correction terms are *differences* of n-length
-    contractions, and the TPU's default bf16 product (~4e-3 relative)
-    would swamp exactly the cancellation the estimator relies on."""
+    contractions, and a reduced-precision default product (TF32 on the
+    GPU) would swamp exactly the cancellation the estimator relies on."""
     if callable(a) and not hasattr(a, "shape"):
         return a, (rmatvec if rmatvec is not None else a)
     require(a.shape == (n, n), "trace/diag estimation needs a square A")

@@ -4,7 +4,7 @@ The TT format writes a p-way tensor X (n_1, ..., n_p) as a chain of
 3-way cores G_k (r_{k-1}, n_k, r_k) with r_0 = r_p = 1 — the
 "matrix-product state" of the tensor world. Storage is sum r n r
 instead of prod(n); every algorithm below is a sequence of batched
-matmuls over static shapes, so the whole tier jits onto the MXU.
+matmuls over static shapes, so the whole tier jits into GEMMs.
 
 Three entry points, all deterministic in the RNGState with
 next_state = f(shape, ranks) (the library-wide stream contract):
@@ -517,7 +517,7 @@ def _stta_sketch(x, r_tt: TTTensor, l_tt: TTTensor, dtype):
 def _stta_recover(psis, r_tt: TTTensor, dtype) -> TTTensor:
     """x-free core recovery G_k = Phi_{k-1}^+ Psi_k, with
     Phi_{k-1} = Psi_k contracted against R's core k (so the Phi family
-    never needs separate storage) through the TPU-safe clipped-QR
+    never needs separate storage) through the damped clipped-QR
     least squares."""
     from .qb import qr_clipped_lstsq
     cores = [psis[0]]                         # l_0 = 1: core as-is

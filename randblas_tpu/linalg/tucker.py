@@ -10,7 +10,7 @@ moderate p with strong per-mode compressibility; TT wins for large p.
 each per-mode SVD replaced by this library's HMT rangefinder
 (oversample + power iteration) on the mode-k unfolding of the
 ALREADY-COMPRESSED core — each mode's work shrinks as earlier modes
-truncate, and every step is a batched MXU matmul. The error satisfies
+truncate, and every step is a batched matmul. The error satisfies
 the ST-HOSVD identity ||X - X_hat||^2 = sum_k eps_k^2 (per-mode
 truncation errors are orthogonal), so randomized per-mode
 quasi-optimality lifts to the full decomposition.

@@ -2,8 +2,9 @@
 
 The native library is optional: ``available()`` gates every entry point,
 and the pure-JAX paths are always present. Build with ``make -C native``;
-this module also attempts an automatic one-time build if a compiler is
-present and the .so is missing.
+this module also builds it on first use when a compiler is present and
+the .so is missing or older than its sources (``needs_build``), so a
+library built on another machine is never loaded stale.
 """
 
 from __future__ import annotations
@@ -19,7 +20,20 @@ _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SO_PATH = os.path.join(_REPO_ROOT, "native", "librandblas_host.so")
+_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
+_SO_PATH = os.path.join(_NATIVE_DIR, "librandblas_host.so")
+_SOURCES = ("randblas_host.cpp", "Makefile")
+
+
+def needs_build(so_path: str = _SO_PATH,
+                sources=tuple(os.path.join(_NATIVE_DIR, f)
+                              for f in _SOURCES)) -> bool:
+    """True when the library is missing or older than any source."""
+    if not os.path.exists(so_path):
+        return True
+    built = os.path.getmtime(so_path)
+    return any(os.path.getmtime(src) > built for src in sources
+               if os.path.exists(src))
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -27,10 +41,9 @@ def _load() -> Optional[ctypes.CDLL]:
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    if not os.path.exists(_SO_PATH):
+    if needs_build():
         try:
-            subprocess.run(["make", "-C",
-                            os.path.join(_REPO_ROOT, "native")],
+            subprocess.run(["make", "-C", _NATIVE_DIR],
                            check=True, capture_output=True, timeout=120)
         except Exception:
             return None
@@ -121,7 +134,7 @@ _CBRNG64 = {"philox2x64": (0, 2, 1), "philox4x64": (1, 4, 2),
 
 def cbrng64(name: str, ctrs: np.ndarray, key: np.ndarray,
             rounds: int) -> np.ndarray:
-    """Raw 64-bit CBRNG blocks (host-only: TPU has no 64-bit lanes).
+    """Raw 64-bit CBRNG blocks (host-only: JAX runs them without x64 mode).
 
     name: philox2x64 | philox4x64 | threefry2x64 | threefry4x64;
     ctrs: uint64 of shape (n, width). Closes the reference's Random123 x64

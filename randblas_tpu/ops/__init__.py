@@ -1,1 +1,1 @@
-"""Compute kernels: counter-addressed fill, COO apply, fused Pallas sketch."""
+"""Compute kernels: counter-addressed fill, COO apply, RNG-in-GEMM sketch."""

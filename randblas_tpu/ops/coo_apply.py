@@ -1,6 +1,6 @@
-"""COO x dense products via gather + segment-sum.
+"""COO x dense products via gather + segment-sum or scatter-densify + GEMM.
 
-This is the TPU answer to the reference's CPU saxpy loops
+The accelerator answer to the reference's CPU saxpy loops
 (coo_spmm_impl.hh:80-162, csc_spmm_impl.hh:44-153, csr_spmm_impl.hh:46-156):
 instead of looping nonzeros with scalar axpys, gather the needed rows of the
 dense operand, scale by the nonzero values, and reduce with an XLA
@@ -49,7 +49,7 @@ def coo_left_apply(
 
 
 # Memory budget (elements) for the one-shot densified operator of
-# coo_left_apply_dense: 2^28 f32 elements = 1 GB of the 16 GB HBM.
+# coo_left_apply_dense: 2^28 f32 elements = 1 GB.
 _DENSE_BUDGET = 1 << 28
 
 
@@ -65,16 +65,8 @@ def coo_left_apply_dense(
     alpha=1.0,
 ) -> jax.Array:
     """alpha * submat(Asp) @ b via ONE flat scatter-add into the full
-    (d, m) densified operator + one MXU GEMM.
-
-    TPU scatter costs ~10 ns per scattered index regardless of target
-    shape (measured, benchmarks/coo_probe.py) — so the panel variant's
-    re-scatter of all nnz indices once per panel is pure waste, and a
-    linearized 1-D index beats the 2-D (row, col) scatter by another
-    ~8%. At the config-4 shape (d=10000, m=20000, nnz=1e6, n=512) this
-    is 2.7x over the panel path: 12.8 ms vs 34.7 (sorting the indices
-    first costs more than sortedness saves; gather+segment-sum is
-    worse still — probe table in benchmarks/coo_probe.py).
+    (d, m) densified operator + one GEMM: each index is scattered once,
+    where the panel variant re-scatters all nnz indices per panel.
     """
     r = rows.astype(jnp.int32) - jnp.int32(ro)
     c = cols.astype(jnp.int32) - jnp.int32(co)
@@ -104,12 +96,12 @@ def coo_left_apply_panels(
     alpha=1.0,
     panel: int = 8192,
 ) -> jax.Array:
-    """alpha * submat(Asp) @ b via densified operator *panels* + MXU GEMM.
+    """alpha * submat(Asp) @ b via densified operator *panels* + GEMM.
 
     For sketching-shaped operands (small d, large m, many output columns)
     this beats gather/segment-sum by orders of magnitude: segment-sum moves
-    nnz*n elements through HBM, while densify-panels moves d*m (the panel
-    scatters) plus one GEMM — the MXU does the heavy lifting. Dispatch is
+    nnz*n elements through device memory, while densify-panels moves d*m
+    (the panel scatters) plus one GEMM. Dispatch is
     in coo_left_apply_auto.
     """
     r = rows.astype(jnp.int32) - jnp.int32(ro)
@@ -130,8 +122,7 @@ def coo_left_apply_panels(
         in_panel = (c >= c0) & (c < c0 + panel)
         w = jnp.where(in_panel, w_all, jnp.zeros((), b.dtype))
         if flat_ok:
-            # linearized 1-D scatter index (measured ~8% cheaper than the
-            # 2-D (row, col) form — benchmarks/coo_probe.py)
+            # linearized 1-D scatter index
             idx = jnp.where(in_panel & window,
                             r * jnp.int32(panel) + (c - c0), 0)
             s_panel = jnp.zeros((d * panel,), b.dtype).at[idx].add(w)
@@ -161,8 +152,8 @@ def fixed_nnz_left_apply(
     contributes to exactly k output rows, so S @ b = sum_t
     segment_sum(vals[:, t] * b, idxs_major[:, t]) — k reweighted passes
     over b, no nnz*n gather blowup and no scatter into operator panels.
-    The TPU counterpart of the reference's "regular CSC" fast path
-    (csc_spmm_impl.hh:68-88).
+    The counterpart of the reference's "regular CSC" fast path
+    (csc_spmm_impl.hh:68-88). Indices outside [0, d) are dropped.
     """
     k = idxs_major.shape[1]
 
@@ -186,15 +177,13 @@ def onehot_panel_apply(
     alpha=1.0,
     panel: int = 4096,
 ) -> jax.Array:
-    """SASO-wide apply as one-hot MXU matmuls: operator panels are built
-    with iota==index compares (pure VPU, no scatter anywhere) and
-    contracted on the MXU.
+    """SASO-wide apply as one-hot GEMMs: operator panels are built with
+    iota==index compares (elementwise, no scatter anywhere) and
+    contracted with a GEMM. Indices outside [0, d) match no row.
 
     S_panel[r, c] = sum_t vals[c, t] * [idxs_major[c, t] == r], then
-    B += S_panel @ b_panel. Measured on v5e at (d=1024, m=65536, n=2048,
-    k=8): 2.2ms vs 49ms for per-t segment-sums and 70ms for
-    gather+segment-sum — the MXU eats the densified contraction while the
-    VPU compare-selects cost k passes over the panel space.
+    B += S_panel @ b_panel. The faster of the two wide-SASO routes on the
+    H100 at config 3's shape (PERF.md).
     """
     m, k = idxs_major.shape
     n = b.shape[1]
@@ -275,7 +264,7 @@ def coo_densify(
 ) -> jax.Array:
     """Dense (n_rows, n_cols) block of the COO matrix starting at (ro, co).
 
-    Used by the one-hot/MXU path for short sketch dimensions and by test
+    Used by the one-hot path for short sketch dimensions and by test
     oracles (counterpart of coo_to_dense, coo_matrix.hh:350-380).
     """
     dtype = vals.dtype if dtype is None else dtype

@@ -1,6 +1,6 @@
 """Counter-addressed dense fill: the vectorized core of implicit operators.
 
-TPU-native counterpart of ``fill_dense_submat_impl`` (dense_skops.hh:97-170).
+Counterpart of ``fill_dense_submat_impl`` (dense_skops.hh:97-170).
 The reference walks rows with OpenMP and consumes one CBRNG block at a time;
 here every (row, block) pair's counter is computed independently from its
 position, so the whole submatrix materializes as one batched generator call —
@@ -98,12 +98,8 @@ def _transform_flat(bits, transform: str):
 
 
 # Generated row counts are rounded up to this multiple, with the phantom
-# rows sliced off the result. On v5e a fill whose generated array has a
-# row (sublane) count not divisible by 8 runs ~9x slower END TO END even
-# under a matmul consumer (config-1 shape 4002x100000, honest measurement
-# via G @ ones: 184 ms unpadded vs 21 ms generated as 4096 rows; the row
-# slice afterward is free, and lane/width padding changes NOTHING —
-# benchmarks/cfg1_probe7.py, BENCH_LOCAL.md round 3). Phantom rows just
+# rows sliced off the result: a tile-aligned layout for the generated
+# array (its effect on the GPU is not measured). Phantom rows just
 # consume later counters and are discarded; kept values are bit-identical.
 _ROW_ALIGN = 8
 
@@ -163,7 +159,7 @@ def fill_colmajor_planes(
     (rows_gen, nblk) planes with
     ``fill_rowmajor(...).T[blk*4 + w, row] == gs[w][row, blk]``
     (before the fbs/n_scols slice). Consumers that can use the word-major
-    order directly (ops/ell_spmm.py deinterleaved operands) skip the
+    order directly (BlockedELL's word-major operands) skip the
     interleave relayout entirely.
     """
     ctr_size = state.len_c
@@ -203,10 +199,8 @@ def fill_colmajor(
 
     ColMajor-natural fills generate the operator's transpose row-major and
     flip it, which made the generation itself run through a (n_srows,
-    nblk, W) intermediate whose W=4 minor dim XLA lays out on lanes when
-    nblk is large — measured ~16x below the generator's throughput at the
-    (512, 2500, 4) config-4 shape, independent of n_srows
-    (benchmarks/cfg4_probe3.py, BENCH_LOCAL.md round 3). Here the four
+    nblk, W) intermediate with a W=4 minor dim, which an accelerator
+    lays out poorly when nblk is large. Here the four
     counter words stay separate 2-D (n_srows, nblk) planes end to end —
     counter limb math, generator rounds (word-wise forms shared with the
     Pallas kernels), float transform — and the output is assembled

@@ -1,12 +1,4 @@
-"""Blocked-ELL Pallas SpMM: C = alpha * E @ B on TPU.
-
-TPU-native counterpart of the reference's per-format SpMM kernels
-(csc_spmm_impl.hh:91-213, csr_spmm_impl.hh:70-156, coo_spmm_impl.hh:80-162)
-for the library's performance sparse formats. The reference's CPU kernels
-walk nonzeros with scalar saxpys; neither scalar walks nor arbitrary row
-gathers map to the TPU (Mosaic's gather only permutes same-shape tiles,
-and dynamically-bounded slot loops serialize — both measured), so the
-format itself is blocked for the kernel:
+"""Blocked-ELL sparse format and its SpMM: C = alpha * E @ B.
 
 **BlockedELL**: for each (row, column-block-of-KB) pair, exactly BW slot
 entries (column LOCAL to the block, value), padded with (-1, 0). BW is
@@ -14,35 +6,25 @@ the max per-(row, block) occupancy — a static property of the matrix.
 Construction is a one-time host-side pass (the analog of the reference
 pre-sorting COO into CSC before its apply, coo_spmm_impl.hh:98-104).
 
-Kernel: grid (n_i, n_j, n_k), k innermost; the (TI, TN) output tile is
-VMEM-resident across the k sweep. Per (i, k): a STATIC loop over the BW
-slots builds the tile's densified panel TRANSPOSED in VMEM —
-panel_T (KB, TI) += where(iota_KB == local_col[s], val[s]) — with no
-transposes, no dynamic indexing, and no data-dependent trip counts
-anywhere; then one MXU contraction panel_T^T @ B_blk in the hardware's
-native ((0,),(0,)) form. Work scales with m * BW * KB instead of the
-XLA gather path's w full HBM passes over B.
-
-Padding slots (col == -1) never match the iota; duplicated (row, col)
-slots accumulate, same as COO.
+The product is plain XLA: one compare-select per slot densifies the
+tables (global column = block * KB + local column, in B's storage
+order) and a GEMM contracts the dense matrix with B; the two-tier
+overflow entries go through the COO apply (ops/coo_apply.py). Padding
+slots (column -1) match no column; duplicated (row, col) slots
+accumulate, same as COO. (Scattering the flattened slot tables instead
+took 23 ms on the H100 at config 4b's shape, where 12.6 M slots hold
+1 M nonzeros — PERF.md.)
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..base import require
-
-# test hook: route BlockedELL products through the Pallas interpreter
-# (CPU) instead of requiring a TPU backend.
-force_interpret = False
 
 
 def _empty(dtype):
@@ -80,10 +62,8 @@ class BlockedELL:
     # storage order: storage row s holds original row k with
     # s = (k % W) * ceil(n_cols / W) + k // W. This is the layout the
     # ColMajor-natural dense fill produces for free (one float per RNG
-    # counter word, planes concatenated un-interleaved) — feeding the
-    # natural row order to pallas_call instead costs a measured ~2 ms
-    # sublane-interleave relayout at the config-4 shape
-    # (benchmarks/cfg4_probe6.py: 4.2 ms -> 2.2 ms end to end).
+    # counter word, planes concatenated un-interleaved), so a product
+    # against an implicit ColMajor operator skips the lane interleave.
     word_major: int = dataclasses.field(default=0,
                                         metadata={"static": True})
 
@@ -162,8 +142,8 @@ class BlockedELL:
                 (c[order][keep_t] % kb).astype(np.int32)
             tab_v[rows[order][keep_t], pos] = v[order][keep_t]
             o_rows = rows[order][ovf].astype(np.int32)
-            # overflow columns stay in storage order — the COO pass reads
-            # the same (possibly word-major) operand the kernel does
+            # overflow columns stay in storage order — they index the
+            # same (possibly word-major) operand the slot tables do
             o_cols = c[order][ovf].astype(np.int32)
             o_vals = v[order][ovf]
             return BlockedELL(jnp.asarray(tab_c.T), jnp.asarray(tab_v.T),
@@ -206,81 +186,6 @@ class BlockedELL:
         return jnp.asarray(dense[:self.n_rows, :self.n_cols])
 
 
-def _kernel(ci_ref, v_ref, b_ref, o_ref, *, ti, kb_sz, bw, alpha,
-            kpb=1):
-    """One (TI, TN) output tile step covering ``kpb`` column blocks:
-    build each block's densified panel (one where-select per slot),
-    stack the panels along the contraction axis and run ONE MXU dot of
-    depth kpb*kb against the matching B rows — fewer, deeper grid steps
-    (the per-step fixed cost was a measurable fraction of the narrow-n
-    budget: 790 steps at the config-4 shape before kpb).
-
-    No software pipelining/skew variant exists anymore: VPU and MXU
-    costs are STRICTLY ADDITIVE on v5e (matmul streaming occupies the
-    issue pipeline; measured for the fused sketch kernels, ROADMAP.md),
-    so a build/dot overlap schedule cannot win by construction — the
-    former _kernel_skew variant never measured a gain and was removed.
-    The wins are fewer VPU ops: bw=8 slot tables (kb=128 blocks), the
-    pre-cast bf16 B operand (b is revisited n_i times; the caller casts
-    once), and the kpb step merge. Panels build in f32 (a bf16 build
-    SIGABRTs the Mosaic compiler on this toolchain)."""
-    iota = jax.lax.broadcasted_iota(jnp.int32, (kb_sz, 1), 0)
-    panels = []
-    for p in range(kpb):
-        panel_t = jnp.zeros((kb_sz, ti), jnp.float32)
-        for s in range(bw):
-            row = p * bw + s
-            c = ci_ref[row:row + 1, :]       # (1, TI) local column ids
-            v = v_ref[row:row + 1, :]
-            panel_t = panel_t + jnp.where(iota == c, v, jnp.float32(0.0))
-        panels.append(panel_t.astype(jnp.bfloat16))
-    stacked = panels[0] if kpb == 1 else jnp.concatenate(panels, axis=0)
-    contrib = jax.lax.dot_general(
-        stacked, b_ref[:],
-        (((0,), (0,)), ((), ())), preferred_element_type=jnp.float32)
-    if alpha != 1.0:
-        contrib = jnp.float32(alpha) * contrib
-
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        o_ref[:] = contrib
-
-    @pl.when(k != 0)
-    def _():
-        o_ref[:] = o_ref[:] + contrib
-
-
-@functools.partial(jax.jit, static_argnames=("alpha", "ti", "kb", "tn",
-                                             "bw", "interpret", "kpb"))
-def _call(ci, v, b, *, alpha, ti, kb, tn, bw, interpret, kpb=1):
-    m = ci.shape[1]
-    n = b.shape[1]
-    n_i, n_j = m // ti, n // tn
-    n_k = b.shape[0] // (kb * kpb)
-    kernel = functools.partial(_kernel, ti=ti, kb_sz=kb, bw=bw,
-                               alpha=alpha, kpb=kpb)
-    return pl.pallas_call(
-        kernel,
-        grid=(n_i, n_j, n_k),
-        interpret=interpret,
-        in_specs=[
-            pl.BlockSpec((kpb * bw, ti), lambda i, j, k: (k, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((kpb * bw, ti), lambda i, j, k: (k, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((kpb * kb, tn), lambda i, j, k: (k, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((ti, tn), lambda i, j, k: (i, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((m, n), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-    )(ci, v, b)
-
-
 def to_word_major_rows(b, w: int, n_cols: int):
     """Reorder a natural-row-order operand (n_cols, n) into word-major
     storage order (w*ceil(n_cols/w), n): storage row (k % w)*nblk + k//w
@@ -295,67 +200,32 @@ def to_word_major_rows(b, w: int, n_cols: int):
         w * nblk, b.shape[1])
 
 
-def blocked_ell_matmul(bell: BlockedELL, b, alpha=1.0,
-                       interpret: bool = False, ti: int = None,
-                       kpb: int = None):
-    """alpha * bell @ b through the blocked one-hot kernel.
-    b: (bell.b_rows, n), float32 or bfloat16 (f32 is pre-cast once to
-    bf16 — the kernel's dots run bf16 either way, and B blocks are
-    revisited n_i times, so the one-time cast replaces n_i in-kernel
-    cast passes and halves the B DMA). For a word-major bell, b's rows
-    must already be in storage order (to_word_major_rows, or a plane
-    fill that produces that order for free). kpb column blocks merge
-    into each grid step (one dot of depth kpb*kb); empty padding blocks
-    carry col == -1 / val == 0."""
+def blocked_ell_matmul(bell: BlockedELL, b, alpha=1.0):
+    """alpha * bell @ b. b: (bell.b_rows, n), float32 or bfloat16; for a
+    word-major bell, b's rows must already be in storage order
+    (to_word_major_rows, or a plane fill that produces that order for
+    free). Returns (bell.n_rows, n) in b's dtype."""
     b = jnp.asarray(b)
-    if b.dtype == jnp.bfloat16:
-        b_f32 = None            # only needed by the COO overflow pass
-    else:
-        b_f32 = jnp.asarray(b, jnp.float32)
-        b = b_f32.astype(jnp.bfloat16)
     require(b.ndim == 2 and b.shape[0] == bell.b_rows,
             "operand height must equal b_rows (n_cols, or the word-major "
             "storage row count)")
+    n_k, bw, kb = bell.n_kblocks, bell.bw, bell.kb
     m_pad = bell.local_cols.shape[1]
-    kb = bell.kb
-    n = b.shape[1]
-    if kpb is None:
-        kpb = min(4, bell.n_kblocks)
-    # Mosaic block floor: slot blocks are (kpb*bw, ti) and the sublane
-    # dim must be a multiple of 8 — raise kpb until it is (this is what
-    # makes small-bw tiers expressible at all)
-    while (kpb * bell.bw) % 8:
-        kpb += 1
-    blocks_pad = -(-bell.n_kblocks // kpb) * kpb
-    k_pad = blocks_pad * kb
-    ci, vals = bell.local_cols, bell.vals
-    if blocks_pad != bell.n_kblocks:
-        extra = (blocks_pad - bell.n_kblocks) * bell.bw
-        ci = jnp.pad(ci, ((0, extra), (0, 0)), constant_values=-1)
-        vals = jnp.pad(vals, ((0, extra), (0, 0)))
-    if ti is None:
-        # measured on v5e at the config-4 shape: (kb=128, ti=2048) wins
-        # (~470-520 GFLOP/s effective vs ~300-410 elsewhere) — small kb
-        # cuts the VPU one-hot work, tall TI keeps the MXU M-dim
-        # efficient; kb=64 loses (bw floor 8 wastes slots).
-        ti = min(2048, m_pad)
-    ti = min(ti, m_pad)
-    while m_pad % ti:
-        ti //= 2
-    tn = min(-(-n // 128) * 128, 2048)
-    n_pad = -(-n // tn) * tn
-    if k_pad != b.shape[0] or n_pad != n:
-        b = jnp.pad(b, ((0, k_pad - b.shape[0]), (0, n_pad - n)))
-    out = _call(ci, vals, b, alpha=float(alpha),
-                ti=ti, kb=kb, tn=tn, bw=bell.bw, interpret=interpret,
-                kpb=kpb)
-    out = out[:bell.n_rows, :n]
+    # (row, block, slot) order, then one compare-select per slot builds
+    # row r's dense columns [block*kb, (block+1)*kb) — no scatter, so no
+    # cost for the padding slots beyond one compare each
+    ci = bell.local_cols.reshape(n_k, bw, m_pad).transpose(2, 0, 1)
+    v = bell.vals.reshape(n_k, bw, m_pad).transpose(2, 0, 1)
+    col = jax.lax.broadcasted_iota(jnp.int32, (1, 1, 1, kb), 3)
+    dense = jnp.sum(jnp.where(ci[..., None] == col, v[..., None],
+                              jnp.zeros((), v.dtype)), axis=2)
+    dense = dense.reshape(m_pad, n_k * kb)[:bell.n_rows].astype(b.dtype)
+    b_pad = jnp.pad(b, ((0, n_k * kb - b.shape[0]), (0, 0)))
+    out = jnp.asarray(alpha, b.dtype) * jnp.matmul(
+        dense, b_pad, preferred_element_type=b.dtype)
     if bell.ovf_nnz:
-        from .coo_apply import coo_left_apply
-        if b_f32 is None:
-            b_f32 = jnp.asarray(b[:bell.b_rows, :n], jnp.float32)
-        # overflow columns index the SAME storage order as the kernel
-        out = out + coo_left_apply(
-            bell.ovf_rows, bell.ovf_cols, bell.ovf_vals, b_f32,
+        from .coo_apply import coo_left_apply_auto
+        out = out + coo_left_apply_auto(
+            bell.ovf_rows, bell.ovf_cols, bell.ovf_vals.astype(b.dtype), b,
             bell.n_rows, bell.b_rows, alpha=alpha)
     return out

@@ -1,10 +1,11 @@
-"""High-precision (f64) GEMM on the TPU MXU via integer slicing.
+"""High-precision (f64) GEMM from int8 matrix products via integer slicing.
 
-TPU v5e has no native f64: XLA emulates f64 elementwise ops in software
-and f64 matmuls run orders of magnitude below the MXU. The reference
-library is templated over T in {float, double} and its headline TLS
-config is fp64 (RandBLAS/skge.hh:174-364; BASELINE.md config 1), so a
-serious f64 tier needs a TPU-native design rather than XLA's fallback.
+For accelerators whose f64 matmul rate is far below their int8 rate. The
+reference library is templated over T in {float, double} and its
+headline TLS config is fp64 (RandBLAS/skge.hh:174-364; BASELINE.md
+config 1). The H100 has native f64 tensor cores, so the library's
+default is the native f64 matmul and this path runs only when forced
+(skge.use_hiprec_f64 = True).
 
 This module implements an Ozaki-style error-free slicing scheme:
 
@@ -14,13 +15,13 @@ This module implements an Ozaki-style error-free slicing scheme:
      a_t) * 2^q.  Every step is EXACT in floating point (the residual is
      the low-order mantissa bits), |a_t| <= 2^(q-1) fits int8.
   2. Each slice-pair product a_t @ b_u runs as an int8 x int8 -> int32
-     MXU contraction. With q = 7, |products| <= 2^12, so int32
+     contraction. With q = 7, |products| <= 2^12, so int32
      accumulation is exact for contraction lengths up to 2^18 — the
      matmul itself introduces NO rounding error.
   3. Slice products are recombined exactly: each int32 panel splits into
      (hi << 16) + lo halves, same-level panels sum in int32 (still
      exact), and only the final weighted sum of ~9 level values runs in
-     (emulated) f64 — O(mn) work vs the O(mnk) on the MXU.
+     f64 — O(mn) work vs the O(mnk) in int8.
 
 Accuracy: slices cover q*S bits of each operand's significand and levels
 t+u <= cutoff contribute down to 2^(-q*cutoff) relative; with the f64
@@ -34,8 +35,8 @@ lost 8 digits; see skge._matmul).
 
 Not supported: Inf/NaN entries (like every slicing scheme); row/column
 maxima outside float32's exponent range (~2^-126 .. 2^127) — the
-power-of-two scaling extracts exponents through an f32 frexp because
-TPU cannot lower the s64 bitcast an f64 frexp needs.
+power-of-two scaling extracts exponents through an f32 frexp, which
+needs no 64-bit integer bitcast.
 """
 
 from __future__ import annotations
@@ -57,10 +58,10 @@ def _f32_parts(x):
     """x as a list of (f32 part, level offset): x ~ sum_p part * 2^(-q*lvl)
     ... no — parts sum directly: x ~ hi + mid + lo, each exactly f32.
 
-    Why parts: on TPU, f64 is EMULATED as an (hi, lo) float32 pair with
-    non-IEEE rounding, so residual peeling in 'f64' arithmetic silently
-    loses exactness (measured: 1e-6 errors at k=8192). Extracting the f32
-    parts first is exact under both real f64 and the dd emulation, and
+    Why parts: where f64 is EMULATED as an (hi, lo) float32 pair with
+    non-IEEE rounding, residual peeling in 'f64' arithmetic silently
+    loses exactness. Extracting the f32 parts first is exact under both
+    real f64 and such a double-float emulation, and
     every subsequent slicing step runs in native, exactly-rounded f32.
     """
     if jnp.dtype(x.dtype) != jnp.float64:
@@ -141,7 +142,7 @@ def _level_products(a_sl, b_sl, sa: int, sb: int, cutoff: int,
     keeps cross-k-block accumulation exact in int32: lo halves are in
     [0, 65535] and hi halves < 2^13 per block, so sums stay well inside
     int32 for thousands of blocks. ta=True contracts a's dim 0 instead
-    (a stored (k, m) — a TN GEMM, native on the MXU)."""
+    (a stored (k, m) — a TN GEMM)."""
     n_lvl = cutoff + 1
     m = a_sl.shape[2] if ta else a_sl.shape[1]
     n = b_sl.shape[2]
@@ -191,7 +192,7 @@ _K_BLOCK = 16384
 def matmul_hiprec(a, b, *, slices_a: int = None, slices_b: int = None,
                   cutoff: int = None, k_block: int = None,
                   transpose_a: bool = False):
-    """a @ b at (near-)f64 accuracy with all O(mnk) work on the int8 MXU.
+    """a @ b at (near-)f64 accuracy with all O(mnk) work in int8 GEMMs.
 
     a: (m, k), b: (k, n); float32 or float64 (slices per operand default
     from its dtype: f64 -> 8, f32 -> 4). Returns float64 (requires
@@ -203,7 +204,7 @@ def matmul_hiprec(a, b, *, slices_a: int = None, slices_b: int = None,
 
     transpose_a=True takes a stored as (k, m) and computes a.T @ b
     without ever materializing the transpose: the int8 dots contract
-    a's dim 0 (a TN GEMM — native on the MXU). Used by the staged
+    a's dim 0 (a TN GEMM). Used by the staged
     sketching path to consume natural-orientation operator fills whose
     transposed materialization would be a slow unaligned relayout.
     """
@@ -219,11 +220,10 @@ def matmul_hiprec(a, b, *, slices_a: int = None, slices_b: int = None,
         cutoff = min(sa + sb - 2, -(-60 // _Q))
     a = jnp.asarray(a)
     b = jnp.asarray(b)
-    # pad every dimension to an MXU-friendly multiple: zero rows/columns
+    # pad every dimension to a tile-friendly multiple: zero rows/columns
     # are EXACT under the slicing scheme (a zero row's axis max is 0 ->
     # scale 1, all its slices are 0, and zero int8 products contribute
-    # nothing), and odd shapes measurably starve the int8 MXU (config 1's
-    # 4002x2000 ran at half the clean-shape rate before this).
+    # nothing), and odd shapes starve int8 matrix units.
     m_true = a.shape[a_m_dim]
     k_true = a.shape[a_k_dim]
     n_true = b.shape[1]

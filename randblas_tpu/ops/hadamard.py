@@ -1,19 +1,19 @@
-"""Walsh–Hadamard transform as MXU matmuls.
+"""Walsh–Hadamard transform as dense matmuls.
 
 The workhorse of the SRHT sketching operator (randblas_tpu/trig.py).
-TPU-first design: no butterfly loops — H_m for m = 2^L factorizes as a
+Accelerator design: no butterfly loops — H_m for m = 2^L factorizes as a
 Kronecker product H_m = H_{f1} (x) ... (x) H_{fk} (Sylvester's
 construction), so the transform of an (m, n) block is k dense
 contractions with small constant +-1 matrices. Factors are balanced
-powers of two capped at 128, which puts every contraction on the MXU at
-its native tile size; total cost is m*n*sum(f_i) MACs ~= m n log2(m) *
+powers of two, so every contraction is a GEMM of useful depth; total cost is m*n*sum(f_i) MACs ~= m n log2(m) *
 (128/7) — for m = 65536 that is ~37 m*n MACs, versus d*m*n for a dense
 Gaussian sketch (d is typically 256-4096), so the transform stage is
 10-100x cheaper than a dense sketch of the same data.
 
 No reference analog: RandBLAS has no trig/Hadamard operator family; this
 module exists to support the beyond-parity TrigSkOp. The matrices are
-+-1-valued so bf16 MXU products are exact; accumulation stays f32.
++-1-valued, so reduced-precision operand rounding leaves them exact;
+accumulation stays f32.
 """
 
 from __future__ import annotations
@@ -44,10 +44,10 @@ def _balanced_factors(m: int, max_factor: int = 128) -> list:
 
     Balancing keeps the smallest factor as large as possible (e.g.
     2^16 at cap 128 -> [64, 32, 32] rather than greedy [128, 128, 4])
-    so every contraction has MXU-worthy depth. Each stage is one full
-    HBM pass over the block, so a LARGER cap trades MXU flops (sum of
+    so every contraction has GEMM-worthy depth. Each stage is one full
+    memory pass over the block, so a LARGER cap trades flops (sum of
     factors) for fewer passes — the transform is bandwidth-bound at
-    big m (see benchmarks/trig_probe.py)."""
+    big m."""
     lg = m.bit_length() - 1
     if lg == 0:
         return [1]
@@ -80,18 +80,16 @@ def hadamard_transform(x: jax.Array, max_factor: int = 512,
     (H H^T = m I); divide by sqrt(m) for the orthonormal transform.
 
     ``max_factor`` caps the per-stage Kronecker factor (a power of two
-    in [2, 4096]); every stage costs one HBM pass over the block plus
-    2*m*n*factor MXU flops, so the transform is bandwidth-bound and
-    larger caps win by cutting passes (v5e, m=65536 n=4096: cap 128 =
-    3 passes 6.1 ms; cap 512 = 2 passes 4.85 ms at ~885 GB/s — probe
-    table in benchmarks/trig_probe.py). 512 keeps the stage constants
-    MXU-tiled; raise it for m > 2^18 if HBM remains the bottleneck.
+    in [2, 4096]); every stage costs one memory pass over the block plus
+    2*m*n*factor flops, so the transform is bandwidth-bound and larger
+    caps cut passes (512: two passes at m = 2^16). The H100 crossover is
+    not measured yet.
 
     ``precision`` forwards to the stage contractions (None = backend
-    default: bf16-on-MXU effective f32, like every other f32 GEMM here;
-    'highest' = 3-pass bf16 for f32-accurate stages at 3x the MXU work
-    — the transform is bandwidth-bound, so this mainly matters for
-    tight numerical cross-checks, tests/test_tpu_hardware.py).
+    default: TF32 operands on the GPU, like every other f32 GEMM here;
+    'highest' = full-f32 stages — the transform is bandwidth-bound, so
+    this mainly matters for tight numerical cross-checks,
+    tests/test_gpu_hardware.py).
 
     Differentiable and jittable; the transform is its own transpose
     (H symmetric), so the VJP is another Hadamard transform for free.
@@ -106,10 +104,9 @@ def hadamard_transform(x: jax.Array, max_factor: int = 512,
         return x
     hiprec = False
     if jnp.dtype(x.dtype) == jnp.float64:
-        # f64 stage contractions ride the int8-sliced MXU GEMM under the
-        # same policy as every other dense f64 product (skge._matmul);
-        # XLA's emulated f64 tensordot is orders of magnitude off the
-        # MXU. Deferred import: skge imports trig imports this module.
+        # f64 stage contractions follow the same policy as every other
+        # dense f64 product (skge._matmul). Deferred import: skge imports
+        # trig imports this module.
         from ..skge import _hiprec_route
         hiprec = _hiprec_route(x.dtype)
     factors = _balanced_factors(m, max_factor)

@@ -1,11 +1,11 @@
 """Multi-chip sketching over jax.sharding meshes.
 
 The reference's only parallelism is OpenMP threads with thread-count-
-invariant streams (SURVEY.md §2.3). Counter addressing makes the TPU
-story strictly stronger: every device generates its tile of one global
+invariant streams (SURVEY.md §2.3). Counter addressing makes the
+accelerator story strictly stronger: every device generates its tile of one global
 operator directly from (seed, tile coordinates) — no communication for
 generation, bit-identical to single-device execution — and only the GEMM
-contraction reduces (psum over ICI).
+contraction reduces (a psum, NVLink all-reduce on a GPU host).
 """
 
 from .distributed import (

@@ -11,7 +11,7 @@ Sharding layout for B = S @ A (left sketch):
 Each device fills exactly the (d/model x m/data) tile of the global
 operator its coordinates dictate, via counter-addressed traced-offset fill
 (dense.fill_dense_submat_traced) — zero communication for generation. The
-only collective is the psum of partial products over 'data' (ICI
+only collective is the psum of partial products over 'data' (an
 all-reduce), exactly where a sharded GEMM must reduce.
 
 Determinism across mesh shapes (tests/test_distributed.py): operator
@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from .. import backend
 from ..base import require
 from ..dense import DenseSkOp, fill_dense_submat_traced
 from ..sparse import SparseSkOp
@@ -79,23 +80,12 @@ def _cached(key, build):
     return fn
 
 
-def _pack_seed_words(ctr, key):
-    """(1, 8) uint32 seed-words block for the fused kernels from (possibly
-    traced) counter/key arrays — the traced-state sibling of
-    ops/fused_sketch._seed_words."""
-    pad = 8 - ctr.shape[0] - key.shape[0]
-    parts = [ctr, key]
-    if pad:
-        parts.append(jnp.zeros((pad,), jnp.uint32))
-    return jnp.concatenate(parts).reshape(1, 8)
-
-
 def _shard_extent(total: int, parts: int, align: int = 1) -> int:
     """Per-shard extent covering `total` over `parts` shards, rounded up
     to `align`: the pad-and-shard scheme. Phantom rows/columns beyond
     `total` either multiply zero-padded data or are sliced off the
     output; alignment keeps every shard's counter offset on a block
-    boundary (the same trick the fused kernel's _plan uses — the counter
+    boundary (the same trick the fused kernel's padding uses — the counter
     stride always comes from the TRUE parent extent, never the padded
     one). Counterpart of fill_dense's any-submatrix generality
     (dense_skops.hh:487-532)."""
@@ -121,12 +111,13 @@ def distributed_sketch(
     and every counter stride comes from the TRUE parent dimensions, so the
     values are bit-identical to the single-device sketch.
 
-    use_fused: 'auto' runs the Pallas RNG-in-GEMM kernel per shard on TPU
-    when the shard shape qualifies (each device generates its tile of the
-    GLOBAL operator in-kernel: the global counter stride and the shard's
-    base counter offset are folded into the kernel's seed); True forces it
-    (with interpret=True this also runs on CPU for testing); False uses
-    the XLA fill+GEMM shard path.
+    use_fused: 'auto' runs the RNG-in-GEMM kernel per shard on the GPU
+    where the shard shape qualifies (ops/fused_sketch.fused_profitable;
+    each device generates its tile of the GLOBAL operator in-kernel: the
+    global counter stride and the shard's base counter offset are folded
+    into the kernel's seed); True forces it (``interpret`` runs it in
+    the Pallas interpreter, for CPU tests); False uses the XLA fill+GEMM
+    shard path.
     """
     require(isinstance(S, DenseSkOp), "distributed_sketch takes a DenseSkOp")
     from ..base import Layout, MajorAxis, Op
@@ -160,7 +151,8 @@ def distributed_sketch(
         and m_per % 4 == 0
     )
     if use_fused == "auto":
-        fused_ok = fused_ok and (interpret or _tpu_platform())
+        fused_ok = fused_ok and backend.on_gpu() and fs.fused_profitable(
+            d_per, m_per, n)
     elif use_fused is True:
         require(fused_ok, "fused distributed path forced but unsupported")
 
@@ -179,18 +171,17 @@ def distributed_sketch(
                 # operator.
                 lo, hi = mul64_u32(ro, jnp.uint32(ctr_stride_global))
                 lo, hi = add64(lo, hi, co // jnp.uint32(4), jnp.uint32(0))
-                seed_words = _pack_seed_words(
-                    ctr_add64(sd.counter, lo, hi), sd.key)
-                # fused_call_diff plans/pads internally and carries the
-                # custom VJP (the cotangent is the transposed kernel with
-                # the same seed words), so sharded sketches differentiate.
+                words = fs.seed_words(ctr_add64(sd.counter, lo, hi),
+                                      sd.key)
+                # fused_call plans/pads internally and carries the custom
+                # VJP (the cotangent is the other orientation with the
+                # same seed words), so sharded sketches differentiate.
                 # alpha is a traced operand (jit-compatible, one compile
                 # for all values) — applied outside the kernel.
-                part = al * fs.fused_call_diff(
-                    d_per, m_per,
-                    dist.family == DenseDistName.Gaussian, 1.0,
-                    ctr_stride_global, interpret, seed.rng,
-                    seed_words, a_blk)
+                part = al * fs.fused_call(
+                    words, a_blk, d_per,
+                    dist.family == DenseDistName.Gaussian,
+                    ctr_stride_global, 0, seed.rng, interpret)
                 return jax.lax.psum(part, "data")
             s_blk = fill_dense_submat_traced(dist, sd, d_per, m_per, ro,
                                              co, dtype)
@@ -210,15 +201,6 @@ def distributed_sketch(
            fused_ok, interpret, seed.rng, seed.key.shape[0])
     out = _cached(key, build)(A, seed, jnp.asarray(alpha, dtype))
     return out[:d] if d_pad_g != d else out
-
-
-def _tpu_platform() -> bool:
-    try:
-        dev = jax.devices()[0]
-        return dev.platform == "tpu" or \
-            "TPU" in getattr(dev, "device_kind", "")
-    except Exception:
-        return False
 
 
 def distributed_sketch_jit(S: DenseSkOp, A: jax.Array, mesh: Mesh,
@@ -250,8 +232,8 @@ def distributed_sketch_right(
     phantom rows multiplying zero-padded data columns and phantom output
     columns sliced off.
 
-    use_fused: on TPU (or with interpret=True), tall-Long shard tiles run
-    through the fused Pallas kernel on their TRANSPOSE: by the
+    use_fused: as for distributed_sketch; tall-Long shard tiles run
+    through the RNG-in-GEMM kernel on their TRANSPOSE: by the
     autotranspose property the tile's transpose is a tile of the global
     transposed (wide RowMajor) operator, so part^T = S_t_tile @ a_blk^T
     generates the operator in-kernel and never stores it.
@@ -286,7 +268,8 @@ def distributed_sketch_right(
         and m_per % 4 == 0
     )
     if use_fused == "auto":
-        fused_ok = fused_ok and (interpret or _tpu_platform())
+        fused_ok = fused_ok and backend.on_gpu() and fs.fused_profitable(
+            d_per, m_per, rows)
     elif use_fused is True:
         require(fused_ok, "fused distributed path forced but unsupported")
 
@@ -306,13 +289,12 @@ def distributed_sketch_right(
                 # GLOBAL stride.
                 lo, hi = mul64_u32(co, jnp.uint32(ctr_stride_global))
                 lo, hi = add64(lo, hi, ro // jnp.uint32(4), jnp.uint32(0))
-                seed_words = _pack_seed_words(
-                    ctr_add64(sd.counter, lo, hi), sd.key)
-                part_t = fs.fused_call_diff(
-                    d_per, m_per,
-                    dist.family == DenseDistName.Gaussian, 1.0,
-                    ctr_stride_global, interpret, seed.rng,
-                    seed_words, a_blk.T)
+                words = fs.seed_words(ctr_add64(sd.counter, lo, hi),
+                                      sd.key)
+                part_t = fs.fused_call(
+                    words, a_blk.T, d_per,
+                    dist.family == DenseDistName.Gaussian,
+                    ctr_stride_global, 0, seed.rng, interpret)
                 return jax.lax.psum(al * part_t.T, "data")
             s_blk = fill_dense_submat_traced(dist, sd, m_per, d_per, ro,
                                              co, dtype)
@@ -348,8 +330,8 @@ def distributed_sparse_sketch(
     triplets for a shard's column range are a contiguous (m_per, vec_nnz)
     slice, so rows/vals flow in with in_spec P('data', None) — no
     replication of the operator. Each device builds only ITS d_per output
-    rows (one-hot compare against the model-local row window on TPU;
-    masked segment-sums elsewhere), and partials psum over 'data' — the
+    rows (the backend's wide-SASO route, skge.SASO_ROUTE, against the
+    model-local row window), and partials psum over 'data' — the
     same single-collective layout as the dense path.
 
     Other operators (LASO, transposed/user COO order) replicate the tiny
@@ -358,7 +340,7 @@ def distributed_sparse_sketch(
     """
     require(isinstance(S, SparseSkOp), "takes a SparseSkOp")
     from ..base import MajorAxis
-    from ..ops.coo_apply import fixed_nnz_left_apply, onehot_panel_apply
+    from ..skge import _saso_wide_apply
 
     s = S.filled()
     d, m = S.shape
@@ -383,15 +365,6 @@ def distributed_sparse_sketch(
             rows_mk = jnp.pad(rows_mk, ((0, m_pad_g - m), (0, 0)),
                               constant_values=-1)
             vals_mk = jnp.pad(vals_mk, ((0, m_pad_g - m), (0, 0)))
-        on_tpu = _tpu_platform()
-        from ..ops.saso_sketch import saso_sketch
-        from ..skge import _saso_kernel_route
-        n_cols_a = A.shape[1]
-        # the shared skge gate: honors "interp" (interpret mode) and a
-        # forced True off-TPU (interpret), so CPU-mesh tests can drive
-        # the kernel shard body
-        use_kernel, kern_interp = _saso_kernel_route(
-            d_per, m_per, k, n_cols_a, A.dtype, on_tpu=on_tpu)
 
         def build():
             def shard_fn(a_blk, rows_blk, vals_blk, al):
@@ -399,23 +372,10 @@ def distributed_sparse_sketch(
                 ro = mi.astype(jnp.int32) * jnp.int32(d_per)
                 r_loc = rows_blk - ro
                 in_rng = (r_loc >= 0) & (r_loc < d_per)
-                if use_kernel:
-                    # -1 never matches the row iota: out-of-window entries
-                    # match no hi block inside the Pallas kernel
-                    idx = jnp.where(in_rng, r_loc, -1)
-                    part = al * saso_sketch(idx, vals_blk, a_blk, d_per,
-                                            interpret=kern_interp)
-                elif on_tpu:
-                    # ... or vanish inside the XLA one-hot panels
-                    idx = jnp.where(in_rng, r_loc, -1)
-                    part = onehot_panel_apply(idx, vals_blk, a_blk,
-                                              d_per, al)
-                else:
-                    idx = jnp.where(in_rng, r_loc, 0)
-                    w = jnp.where(in_rng, vals_blk,
-                                  jnp.zeros((), vals_blk.dtype))
-                    part = fixed_nnz_left_apply(idx, w, a_blk, d_per,
-                                                al)
+                # out-of-window entries get index -1, which both wide
+                # routes drop
+                idx = jnp.where(in_rng, r_loc, -1)
+                part = _saso_wide_apply(idx, vals_blk, a_blk, d_per, al)
                 return jax.lax.psum(part, "data")
 
             return jax.shard_map(
@@ -429,7 +389,7 @@ def distributed_sparse_sketch(
             )
 
         key = ("sparse_canon", mesh, d, m, k, d_per, m_per, str(A.dtype),
-               str(vals_mk.dtype), on_tpu, use_kernel)
+               str(vals_mk.dtype), backend.platform())
         out = _cached(key, build)(A, rows_mk, vals_mk,
                                   jnp.asarray(alpha, A.dtype))
         return out[:d] if d_pad_g != d else out
@@ -522,7 +482,8 @@ def distributed_sketch_cols(
         and m % 4 == 0
     )
     if use_fused == "auto":
-        fused_ok = fused_ok and (interpret or _tpu_platform())
+        fused_ok = fused_ok and backend.on_gpu() and fs.fused_profitable(
+            d_per, m, n_per)
     elif use_fused is True:
         require(fused_ok, "fused distributed path forced but unsupported")
 
@@ -534,13 +495,12 @@ def distributed_sketch_cols(
             ro = mi.astype(jnp.uint32) * jnp.uint32(d_per)
             if fused_ok:
                 lo, hi = mul64_u32(ro, jnp.uint32(ctr_stride_global))
-                seed_words = _pack_seed_words(
-                    ctr_add64(sd.counter, lo, hi), sd.key)
-                return al * fs.fused_call_diff(
-                    d_per, m,
-                    dist.family == DenseDistName.Gaussian, 1.0,
-                    ctr_stride_global, interpret, seed.rng,
-                    seed_words, a_blk)
+                words = fs.seed_words(ctr_add64(sd.counter, lo, hi),
+                                      sd.key)
+                return al * fs.fused_call(
+                    words, a_blk, d_per,
+                    dist.family == DenseDistName.Gaussian,
+                    ctr_stride_global, 0, seed.rng, interpret)
             s_blk = fill_dense_submat_traced(dist, sd, d_per, m, ro,
                                              jnp.uint32(0), dtype)
             part = jnp.matmul(s_blk, a_blk.astype(dtype),

@@ -1,43 +1,45 @@
 """Multi-host (multi-process) mesh construction for distributed sketching.
 
-SURVEY §2.3 specifies JAX collectives over ICI *and DCN*. Everything in
+SURVEY §2.3 specifies JAX collectives within *and across* hosts.
+Everything in
 ``distributed.py`` is mesh-shape agnostic — counter addressing gives each
 device its tile of the global operator from (seed, mesh coordinates)
 alone, so nothing in the sketching math changes across hosts. What DOES
-change is the cost model: inter-host links (DCN) are an order of
-magnitude slower than intra-host ICI, so the *device order inside the
-mesh* decides whether the one collective these kernels issue (the psum
-of partial products over 'data') decomposes hierarchically
-(reduce-scatter on ICI -> small all-reduce on DCN -> all-gather on ICI)
-or naively streams full tiles over DCN.
+change is the cost model: the inter-host network is an order of
+magnitude slower than the intra-host links (NVLink between GPUs), so
+the *device order inside the mesh* decides whether the one collective
+these kernels issue (the psum of partial products over 'data')
+decomposes hierarchically (reduce-scatter inside the host -> small
+all-reduce across hosts -> all-gather inside the host) or naively
+streams full tiles across hosts.
 
 This module builds ('model', 'data') meshes whose device order is
 **process-contiguous**:
 
 * ``model`` fits inside each process whenever it divides the local
   device count — the 'model' axis (output rows; all-gathers in consumer
-  code) then never touches DCN;
+  code) then never crosses hosts;
 * ``data`` is process-major — consecutive blocks of the 'data' axis
   belong to one process, which is the layout XLA's hierarchical
-  all-reduce needs to keep the DCN leg at 1/(local size) of the bytes.
+  all-reduce needs to keep the cross-host leg at 1/(local size) of the
+  bytes.
 
 Launch recipe (one process per host; see docs/distributed.md for the
 full walkthrough):
 
     # on every host, same program:
     import randblas_tpu.parallel as par
-    par.initialize_multihost()            # env-configured (TPU pods), or
+    par.initialize_multihost()            # env-configured clusters, or
     # par.initialize_multihost("host0:8476", num_processes=4, process_id=i)
     mesh = par.make_multihost_sketch_mesh(model=2)
     B = par.distributed_sketch(S, A, mesh)   # unchanged from single-host
 
-There is no multi-host TPU hardware in this environment, but the path
-is exercised for real anyway: tests/test_multihost.py spawns TWO OS
+The path is exercised without a cluster: tests/test_multihost.py spawns TWO OS
 processes, each with its own 2-device CPU backend, initializes
 ``jax.distributed`` over a localhost coordinator, and runs
 ``distributed_sketch`` (aligned + pad-and-shard) through XLA's gloo
-cross-process collectives — the same collective machinery a
-DCN-connected pod uses, modulo transport. The arrangement logic is
+cross-process collectives — the same collective machinery a multi-host
+cluster uses, modulo transport. The arrangement logic is
 additionally covered with mocked process maps. Reference: ABSENT
 (RandBLAS is single-node OpenMP; SURVEY §2.3 rows 2-5).
 """
@@ -61,8 +63,8 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     """Initialize the JAX multi-process runtime (thin, documented wrapper
     over ``jax.distributed.initialize``).
 
-    On TPU pods launched through a supported scheduler every argument is
-    discovered from the environment — call with no arguments, once, at
+    On clusters launched through a scheduler JAX supports every argument
+    is discovered from the environment — call with no arguments, once, at
     program start, before any other JAX call. Elsewhere pass the
     coordinator's ``host:port``, the total process count, and this
     process's rank. After it returns, ``jax.devices()`` lists the
@@ -139,7 +141,8 @@ def arrange_multihost_devices(devices, model: int,
         require(False,
                 f"model={model} neither divides nor is divisible by the "
                 f"per-process device count {per}; such a mesh would split "
-                "a process across both axes (DCN on every collective)")
+                "a process across both axes (cross-host traffic on every "
+                "collective)")
     return arr
 
 
@@ -147,7 +150,7 @@ def make_multihost_sketch_mesh(model: int = 1, data: Optional[int] = None,
                                *, devices=None,
                                process_index_of=None) -> Mesh:
     """A ('model', 'data') Mesh over all processes' devices with
-    DCN-friendly (process-contiguous) device order — the multi-host
+    cross-host-friendly (process-contiguous) device order — the multi-host
     counterpart of ``make_sketch_mesh``. Call after
     ``initialize_multihost()``; every process must call it with the same
     arguments (meshes are global objects in multi-process JAX).

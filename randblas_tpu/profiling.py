@@ -1,9 +1,9 @@
 """Profiling / benchmarking harness.
 
-The reference has only ad-hoc chrono timers (SURVEY.md §5); the TPU-native
-subsystem provides:
-  - ``time_op``: robust on-device timing (see bench_util for why
-    block_until_ready isn't enough in this environment),
+The reference has only ad-hoc chrono timers (SURVEY.md §5); this module
+provides:
+  - ``time_op``: host-clock timing around ``block_until_ready``
+    (bench_util.time_host),
   - ``roofline_report``: GFLOP/s + fraction-of-GEMM-roofline for a sketch,
   - ``trace``: context manager wrapping jax.profiler for TensorBoard-level
     traces when a trace directory is given.
@@ -16,9 +16,8 @@ import dataclasses
 from typing import Callable, Optional
 
 import jax
-import jax.numpy as jnp
 
-from .bench_util import time_loop
+from .bench_util import time_host
 
 
 @dataclasses.dataclass
@@ -32,11 +31,10 @@ class OpTiming:
 
 
 def time_op(fn: Callable, *operands, flops: float,
-            iters_large: int = 4) -> OpTiming:
-    """Time fn(i, carry, *operands) -> scalar via on-device loop
-    differencing. fn must thread the carry for a data dependence."""
-    dt = time_loop(fn, *operands, iters_large=iters_large)
-    return OpTiming(seconds=dt, flops=flops)
+            iters: int = 5) -> OpTiming:
+    """Time ``fn(*operands)`` (jitted) on the host clock."""
+    return OpTiming(seconds=time_host(fn, *operands, iters=iters),
+                    flops=flops)
 
 
 def roofline_report(sketch_timing: OpTiming, gemm_timing: OpTiming,

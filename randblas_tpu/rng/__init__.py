@@ -1,6 +1,6 @@
 """Counter-based RNG core: Philox/Threefry generators, RNGState, transforms.
 
-TPU-native counterpart of the reference's L2 layer (RandBLAS/base.hh RNGState,
+Counterpart of the reference's L2 layer (RandBLAS/base.hh RNGState,
 RandBLAS/random_gen.hh generators; see SURVEY.md §1).
 """
 

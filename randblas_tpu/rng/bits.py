@@ -1,7 +1,7 @@
 """Low-level uint32 arithmetic helpers shared by the JAX and Pallas RNG paths.
 
-TPUs have no native 64-bit integer datapath, and Pallas kernels cannot rely
-on x64 mode. Everything here is expressed in uint32 ops (wraparound add/mul,
+JAX runs without x64 mode by default, and Pallas kernels cannot rely on
+it. Everything here is expressed in uint32 ops (wraparound add/mul,
 shifts, xor) so the same building blocks work in plain jitted JAX, inside
 Pallas kernels, and on CPU test meshes.
 
@@ -27,7 +27,7 @@ def mul32_wide(a, b):
     """Full 32x32 -> 64 bit unsigned multiply, returned as (hi, lo) uint32.
 
     Implemented with 16-bit limb splits so it lowers to plain uint32
-    multiplies (TPU-friendly; no uint64 required).
+    multiplies (no uint64 required).
     """
     a = _u32(a)
     b = _u32(b)
@@ -78,7 +78,7 @@ def ctr_add64_words(ctr, lo, hi=0):
     *planes* as a tuple. When lo/hi are (..., )-shaped arrays, each plane
     broadcasts to that shape — the form the word-wise generators consume
     directly, avoiding the minor-dim-W layout that the stacked counter
-    array forces on TPU (see ops/dense_fill.py::fill_colmajor)."""
+    array forces (see ops/dense_fill.py::fill_colmajor)."""
     ctr = jnp.asarray(ctr, dtype=jnp.uint32)
     lo = _u32(lo)
     hi = _u32(hi)

@@ -8,7 +8,7 @@ r123_kat_vectors.txt).
 
 All functions are shape-polymorphic: counters have shape (..., W) where W is
 the counter width in 32-bit words; keys are broadcast along the leading dims.
-Everything is uint32, so the same code runs under jit on TPU/CPU and inside
+Everything is uint32, so the same code runs under jit on GPU/CPU and inside
 Pallas kernels.
 """
 
@@ -33,7 +33,7 @@ def philox4x32_words(x0, x1, x2, x3, k0, k1, rounds: int = 10):
 
     This word-wise form is shared by the batched JAX path and Pallas
     kernels, where keeping the four counter words as independent 2-D
-    arrays avoids minor-dim relayouts on TPU.
+    arrays avoids minor-dim relayouts.
     """
     m0 = jnp.uint32(PHILOX_M4x32_0)
     m1 = jnp.uint32(PHILOX_M4x32_1)

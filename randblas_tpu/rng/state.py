@@ -1,6 +1,6 @@
 """RNGState: the serializable snapshot of a counter-based RNG stream.
 
-TPU-native counterpart of ``RandBLAS::RNGState<RNG>`` (base.hh:161-251).
+Counterpart of ``RandBLAS::RNGState<RNG>`` (base.hh:161-251).
 A state is a tiny pytree of two uint32 arrays (counter, key) plus the
 generator name as static metadata, so it can be:
 
@@ -36,7 +36,7 @@ _GENERATORS = {
 }
 
 # 64-bit-counter generators (the reference's native-f64 stream surface,
-# random_gen.hh:121-173). TPUs have no 64-bit integer lanes, so these
+# random_gen.hh:121-173). They need 64-bit integer arithmetic, so these
 # generate on the HOST (rng/x64.py numpy + native C++ engine; both
 # KAT-verified). State storage stays uint32: counter/key arrays hold the
 # little-endian LIMB view of the uint64 words (word i -> limbs 2i, 2i+1),
@@ -137,8 +137,8 @@ class RNGState:
     def generate(self) -> Callable:
         """The raw block generator: (ctr[...,W], key) -> uint32[...,W].
 
-        x64 states have no traced generator (no 64-bit integer lanes on
-        TPU); use rng.x64's numpy functions or the native engine.
+        x64 states have no traced generator (they need 64-bit integer
+        arithmetic); use rng.x64's numpy functions or the native engine.
         """
         _, _, fn, rounds = generator_info(self.rng)
         if fn is None:

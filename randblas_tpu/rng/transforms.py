@@ -1,6 +1,6 @@
 """Transforms from raw uint32 CBRNG output to floating-point samples.
 
-TPU-native counterpart of r123ext::boxmul / r123ext::uneg11
+Counterpart of r123ext::boxmul / r123ext::uneg11
 (RandBLAS/random_gen.hh:81-177) and the Random123 uniform.hpp/boxmuller.hpp
 mappings they wrap.
 
@@ -14,7 +14,7 @@ Bit-exactness contract: the uint32 stream is bit-identical to Random123
 (KAT-tested), and the uneg11/u01 uniform maps are exact float arithmetic.
 The Box-Muller Gaussian map goes through log/sin/cos, whose float32
 accuracy is implementation-defined (XLA's CPU f32 log is ~3e-4 relative vs
-libm; TPU VPU transcendentals differ again), so Gaussian streams are
+libm; GPU libdevice transcendentals differ again), so Gaussian streams are
 reproducible bitwise *within* one platform+compiler but only to ~1e-3
 relative across platforms (see SURVEY.md §7 hard part 1). Statistical
 quality is unaffected.
@@ -90,64 +90,13 @@ def u01_i32(signed):
     return base + jnp.where(signed < 0, jnp.float32(1.0), jnp.float32(0.0))
 
 
-# minimax-style odd polynomial for sin(pi*w) on [-1/2, 1/2]
-# (least-squares fit, max abs error 9.9e-9 — below f32 eps, so the
-# value agrees with a correctly-rounded sin to ~1 ulp)
-_SINPI_C0 = 3.1415925995
-_SINPI_C1 = -5.1677080835
-_SINPI_C2 = 2.5500510188
-_SINPI_C3 = -0.59816166147
-_SINPI_C4 = 0.077447286579
-
-
-def _sinpi_half(w):
-    """sin(pi*w) for w in [-1/2, 1/2] (degree-9 odd polynomial)."""
-    w2 = w * w
-    p = jnp.float32(_SINPI_C4)
-    p = p * w2 + jnp.float32(_SINPI_C3)
-    p = p * w2 + jnp.float32(_SINPI_C2)
-    p = p * w2 + jnp.float32(_SINPI_C1)
-    p = p * w2 + jnp.float32(_SINPI_C0)
-    return w * p
-
-
-def _sincospi_fast(u):
-    """(sin(pi*u), cos(pi*u)) for u in (-1, 1) via half-range folds of
-    one polynomial: sin needs a fold for |u| > 1/2, and cos(pi*u) ==
-    sin(pi*(1/2 - |u|)) with the argument already in range. Skips the
-    general argument reduction inside the hardware sin/cos — measurably
-    cheaper on the TPU VPU for the Box-Muller hot path."""
-    au = jnp.abs(u)
-    w_s = jnp.where(au > jnp.float32(0.5),
-                    jnp.where(u >= 0, jnp.float32(1.0) - au,
-                              au - jnp.float32(1.0)),
-                    u)
-    return _sinpi_half(w_s), _sinpi_half(jnp.float32(0.5) - au)
-
-
-def boxmul_pair_i32(s_even, s_odd, fast_cos: bool = False):
-    """Box-Muller on signed int32 word views (Pallas-safe).
-
-    fast_cos=True swaps the hardware sin/cos pair for the Box-Muller
-    specialization (_sincospi_fast): half-range folds of one degree-9
-    polynomial whose error is below f32 eps — identical real-arithmetic
-    values, ~1 ulp f32 difference from the direct evaluations, but far
-    fewer VPU ops (no general argument reduction). This stays inside
-    the library's documented float tolerance: XLA-CPU, XLA-TPU and
-    Mosaic transcendentals already differ at that level (module
-    docstring), and the uint32 stream — the bit-exactness contract —
-    is untouched. Used by the fused kernel's hot path; the staged/XLA
-    paths keep the direct evaluations.
-    """
+def boxmul_pair_i32(s_even, s_odd):
+    """Box-Muller on signed int32 word views (Pallas-safe: no uint32 ->
+    float conversion)."""
     u = uneg11_i32(s_even)
     r = jnp.sqrt(jnp.float32(-2.0) * jnp.log(u01_i32(s_odd)))
-    if fast_cos:
-        s, c = _sincospi_fast(u)
-    else:
-        ang = jnp.float32(_PI) * u
-        s = jnp.sin(ang)
-        c = jnp.cos(ang)
-    return s * r, c * r
+    ang = jnp.float32(_PI) * u
+    return jnp.sin(ang) * r, jnp.cos(ang) * r
 
 
 def boxmul_pair(u_even, u_odd):

@@ -4,7 +4,7 @@ The reference's fill engine is templated over the CBRNG: instantiated
 with a 64-bit-counter generator it produces NATIVE double streams — the
 float width is deduced from the counter word size
 (reference RandBLAS/random_gen.hh:121-173; fill engine
-dense_skops.hh:97-170). TPUs have no 64-bit integer lanes, so this
+dense_skops.hh:97-170). They need 64-bit integer arithmetic, so this
 framework keeps the x64 quartet (Philox2x64/4x64, Threefry2x64/4x64) on
 the HOST: a vectorized numpy implementation here (always available) and
 an independent OpenMP C++ one in native/randblas_host.cpp (KAT-verified

@@ -1,6 +1,6 @@
 """sketch_general: the primary sketching entry point.
 
-TPU-native counterpart of RandBLAS/skge.hh (sketch_general overload set,
+Counterpart of RandBLAS/skge.hh (sketch_general overload set,
 lskge3/rskge3 :174-364, lskges/rskges :486-641). Functional semantics:
 
     left:  B_new = alpha * op_s(submat(S)) @ op_a(A) + beta * B
@@ -11,8 +11,9 @@ S is a DenseSkOp or SparseSkOp. The BLAS-style (layout, ld, flat-buffer)
 surface lives in randblas_tpu.compat for porting the reference test matrix.
 
 Dense operators dispatch to a GEMM whose left operand is generated from
-counters (lazily materialized block, or the fused Pallas path that never
-touches HBM); sparse operators dispatch to gather/segment-sum COO apply.
+counters (a lazily materialized block, or on the GPU, where it pays, the
+RNG-in-GEMM kernel that never writes the operator to device memory);
+sparse operators dispatch to XLA gather/segment-sum/one-hot routes.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Optional, Union
 import jax
 import jax.numpy as jnp
 
+from . import backend
 from .base import Op, Side, dims_before_op, require
 from .dense import DenseSkOp
 from .ops.coo_apply import coo_left_apply_auto as coo_left_apply
@@ -30,66 +32,32 @@ from .trig import TrigSkOp
 
 SkOp = Union[DenseSkOp, SparseSkOp, TrigSkOp]
 
-# Fused-kernel dispatch policy: "auto" uses the Pallas RNG-in-GEMM kernel
-# on TPU whenever the call shape qualifies; True forces it (errors if
-# unsupported); False always materializes the operator block first.
+# Fused-kernel dispatch policy: "auto" runs the RNG-in-GEMM kernel
+# (ops/fused_sketch.py) on the GPU where it measured faster than the
+# staged fill + GEMM (fused_profitable); True forces it (errors if the
+# call is unsupported); False always materializes the operator block.
 use_fused = "auto"
 
-# f64 GEMM policy: "auto" routes float64 dense products through the
-# int8-sliced MXU GEMM (ops/f64gemm.py) on TPU, where XLA's emulated f64
-# matmul is orders of magnitude off the MXU; True forces it everywhere;
-# False always uses jnp.matmul.
+# f64 GEMM policy: True routes float64 dense products through the
+# int8-sliced GEMM (ops/f64gemm.py); "auto" and False use the native
+# f64 matmul.
 use_hiprec_f64 = "auto"
 
-# Staged-path fill policy: False (default) uses the XLA fill; True
-# routes operator-block generation through the Pallas fill kernel
-# (ops/fused_sketch.py pallas_fill_block — interpret mode off-TPU).
-# MEASURED on v5e at the 4096x1024 lifting shape: XLA fill 137us vs
-# Pallas fill 212us (the XLA fill is already near the generation
-# compute bound; the slab-interleave epilogue costs the Pallas path an
-# extra pass), so the XLA fill stays the default and the kernel remains
-# available for experimentation/diagnostics. uint32 streams are
-# identical either way; Gaussian floats differ ~1 ulp (documented
-# signed-view u01 double rounding, rng/transforms.py).
-use_pallas_fill = False
-
-# Wide-SASO apply policy: "auto" routes full wide-SASO sketches through
-# the Pallas in-VMEM one-hot kernel (ops/saso_sketch.py) on TPU at
-# qualifying shapes; True forces the kernel (interpret mode off-TPU);
-# "interp" forces interpret mode; False always uses the XLA routes
-# (one-hot panels on TPU, per-slot segment-sums elsewhere).
-use_saso_kernel = "auto"
+# Wide-SASO apply route per backend (ops/coo_apply.py): "onehot" builds
+# one-hot operator panels and contracts them with a GEMM; "segsum" runs
+# one segment-sum pass per nonzero slot. The GPU entry is the faster of
+# the two at config 3's shape on the H100 (PERF.md).
+SASO_ROUTE = {"gpu": "onehot", "cpu": "segsum"}
 
 
-def _tpu_backend() -> bool:
-    try:
-        return jax.devices()[0].platform in ("tpu",) or \
-            "TPU" in getattr(jax.devices()[0], "device_kind", "")
-    except Exception:
-        return False
-
-
-def _saso_kernel_route(d: int, m: int, k: int, n: int, dtype,
-                       on_tpu: bool | None = None):
-    """The ONE SASO-kernel dispatch gate, shared by the wide-full and
-    trans-full skge paths and parallel.distributed. Returns
-    ``(use_kernel, interpret)`` under the current ``use_saso_kernel``
-    policy: "auto" takes the kernel on TPU at profitable shapes (v5e
-    same-run probe, BENCH_LOCAL.md "SASO kernel" table: 1.2-1.5x for
-    m >= 4096; below that both routes are <0.1 ms and kernel fixed
-    costs can lose); True forces it (interpret mode off-TPU); "interp"
-    forces interpret mode; False disables it."""
-    from .ops.saso_sketch import saso_sketch_supported
-    if on_tpu is None:
-        on_tpu = _tpu_backend()
-    ok = (use_saso_kernel is not False
-          and saso_sketch_supported(d, m, k, n)
-          and jnp.dtype(dtype) == jnp.dtype(jnp.float32))
-    if use_saso_kernel == "auto":
-        ok = ok and on_tpu and m >= 4096
-    interpret = (use_saso_kernel == "interp"
-                 or (use_saso_kernel is True and not on_tpu))
-    return ok, interpret
+def _saso_wide_apply(idx, w, b_mat, d: int, alpha):
+    """alpha * S @ b_mat for a wide operator with k nonzeros per column:
+    idx/w are (m, k) row indices and values; an index outside [0, d)
+    contributes nothing."""
+    from .ops.coo_apply import fixed_nnz_left_apply, onehot_panel_apply
+    if SASO_ROUTE.get(backend.platform(), "segsum") == "onehot":
+        return onehot_panel_apply(idx, w, b_mat, d, alpha)
+    return fixed_nnz_left_apply(idx, w, b_mat, d, alpha)
 
 
 def _as_op(op) -> Op:
@@ -122,9 +90,8 @@ def _dense_block(S: DenseSkOp, rows_s: int, cols_s: int, ro_s: int,
     On the high-precision f64 route, lazily generated GAUSSIAN blocks
     stay f32: their values ARE f32-exact (the reference also generates in
     float and promotes, dense_skops.hh:50-55) and _matmul slices f32
-    operands to full f64 depth — this halves the block's footprint and
-    skips the (emulated, dd-pair) f64 materialization entirely. Uniform
-    is excluded: its sqrt(3) scale is applied in the target dtype
+    operands to full f64 depth — this halves the block's footprint.
+    Uniform is excluded: its sqrt(3) scale is applied in the target dtype
     (matching the reference's T-typed scal, dense_skops.hh:512), so f64
     Uniform values are not f32-representable."""
     from .dense import DenseDistName
@@ -135,25 +102,12 @@ def _dense_block(S: DenseSkOp, rows_s: int, cols_s: int, ro_s: int,
         # x64 seeds are excluded: their streams are NATIVE f64
         # (rng/x64.py), not f32-exact values promoted
         blk_dtype = jnp.float32
-    if S.materialized is None and use_pallas_fill is not False:
-        from .ops import fused_sketch as fs
-        if (fs.pallas_fill_supported(S.dist, blk_dtype, S.seed_state.rng)
-                and (use_pallas_fill in (True, "interp")
-                     or _tpu_backend())):
-            blk = fs.pallas_fill_block(
-                S, rows_s, cols_s, ro_s, co_s,
-                interpret=(use_pallas_fill == "interp"
-                           or (use_pallas_fill is True
-                               and not _tpu_backend())))
-            return blk.T if op_s == Op.Trans else blk
     blk = S.submat(rows_s, cols_s, ro_s, co_s, dtype=blk_dtype)
     return blk.T if op_s == Op.Trans else blk
 
 
 def _hiprec_route(dtype) -> bool:
-    return jnp.dtype(dtype) == jnp.float64 and (
-        use_hiprec_f64 is True
-        or (use_hiprec_f64 == "auto" and _tpu_backend()))
+    return jnp.dtype(dtype) == jnp.float64 and use_hiprec_f64 is True
 
 
 def _matmul(a, b, dtype):
@@ -175,193 +129,37 @@ def _matmul(a, b, dtype):
     return jnp.matmul(a, b, preferred_element_type=dtype)
 
 
-def _fused_eligible(S: DenseSkOp, rows_s: int, cols_s: int, ro_s: int,
-                    co_s: int, op_s: Op, dtype) -> bool:
-    if use_fused is False:
-        return False
-    if S.materialized is not None:
-        return False
-    if S.seed_state.rng not in ("philox4x32", "threefry4x32"):
-        return False  # kernels support the 4x32 CBRNGs
-    from .ops.fused_sketch import fused_sketch_supported
-    ok = fused_sketch_supported(S.dist, rows_s, cols_s, ro_s, co_s, op_s,
-                                dtype)
-    # Gate from the measured profit boundary (benchmarks/gate_sweep.py,
-    # 10-shape same-run sweep, BENCH_LOCAL.md "Gate sweep" table):
-    # fused/staged is 1.01 at m=1280, 1.77 at 1536, 1.75-2.0 for
-    # m >= 2048 (both n=512 and n=2048), so the contraction gate sits
-    # at 1536 (round 2 had it at 2048 from a 2-point probe). A SHORT
-    # OPERATOR is the other loss mode: at d=256 the kernel pads to its
-    # row block and loses 13% (0.867 at 256x4096@4096) while d=512/768
-    # win 1.43x/1.41x, so auto mode requires rows_s >= 512 (the
-    # smallest measured winning d).
-    if use_fused != True and (cols_s < 1536 or rows_s < 512):  # noqa: E712
-        return False
-    # use_fused is True ("forced") must not raise here: other fused
-    # routes (left-Trans autotranspose) may still apply; the final
-    # fallback enforces it.
-    return ok and (use_fused is True or _tpu_backend())
+def _fused_or_none(S: DenseSkOp, a_mat, rows_s: int, cols_s: int,
+                   ro_s: int, co_s: int, op_s: Op, dtype, alpha):
+    """alpha * op_s(block(S)) @ a_mat through the RNG-in-GEMM kernel, or
+    None when the staged fill + GEMM should run.
 
-
-def _fused_gates_ok(S: DenseSkOp, dtype) -> bool:
-    if S.materialized is not None or use_fused is False:
-        return False
-    if S.seed_state.rng not in ("philox4x32", "threefry4x32") \
-            or jnp.dtype(dtype) not in (jnp.dtype(jnp.float32),
-                                        jnp.dtype(jnp.bfloat16)):
-        return False
-    return use_fused is True or _tpu_backend()
-
-
-def _left_colmajor_fused_or_none(S: DenseSkOp, a_mat, rows_s: int,
-                                 cols_s: int, ro_s: int, co_s: int,
-                                 op_s: Op, dtype, alpha):
-    """Left NoTrans sketch of a ColMajor-natural operator (wide+Short or
-    tall+Long) through the lane-slab generation kernel, or None.
-
-    Round-3 dispatch: the kernel (bf16 pre-cast A + tk covering the
-    contraction + two row chunks, exec_opts_T) now beats the staged
-    fill+GEMM path in same-run v5e measurements (0.516 vs 0.474 of the
-    materialized-GEMM roofline at 4096x1024 @ 4096; round 2 had it the
-    other way at 0.45 vs 0.58), so auto mode runs it whenever the
-    contraction is long enough to amortize the panel machinery
-    (cols_s >= 1024 — CONFIRMED by the round-4 profit-boundary sweep,
-    benchmarks/gate_sweep.py: fused/staged = 0.829 at m=512, 1.006 at
-    768, 1.031 at 1024, rising to 1.10-1.52 at larger m/d; round 3's
-    apparent 2.38x win at m=512 was a differencing artifact from an
-    under-sized timing signal). use_fused=True forces the kernel
-    regardless (tests)."""
-    if op_s != Op.NoTrans or not _fused_gates_ok(S, dtype):
+    op_s == Trans uses the fill-order autotranspose property (tested in
+    test_dense_fill.py): block(S, r, c, ro, co)^T == block(S_t, c, r, co,
+    ro) for the transposed distribution S_t with the same seed, whose
+    natural layout is the other one. A square distribution transposes to
+    itself, so the identity does not hold there and it stays staged.
+    """
+    if use_fused is False or S.materialized is not None:
         return None
     from .ops import fused_sketch as fs
-    from .dense import DenseDistName
-    if S.dist.family == DenseDistName.BlackBox:
-        return None
-    if not fs.fused_sketch_colmajor_supported(
-            S.dist, rows_s, cols_s, ro_s, co_s, op_s, dtype):
-        return None
-    if use_fused != True and cols_s < 1024:  # noqa: E712
-        return None
-    return fs.fused_sketch_colmajor(S, a_mat, alpha=float(alpha),
-                                    rows_s=rows_s, cols_s=cols_s,
-                                    ro_s=ro_s, co_s=co_s)
-
-
-def _left_trans_fused_or_none(S: DenseSkOp, a_mat, rows_s: int,
-                              cols_s: int, ro_s: int, co_s: int,
-                              op_s: Op, dtype, alpha):
-    """Left sketch with op_s == Trans through the fused kernel, or None.
-
-    B = block(S)^T @ A where the stored block is (rows_s, cols_s). By the
-    fill-order autotranspose property (tested in test_dense_fill.py),
-    block(S, r, c, ro, co)^T == block(S_t, c, r, co, ro) for the
-    transposed distribution S_t with the same seed — so the transposed
-    block IS a fused-eligible left operand: the RowMajor kernel when S_t
-    is RowMajor-natural, the transposed-generation kernel when S_t is
-    ColMajor-natural. Either way: no extra data passes at all.
-    """
-    if op_s != Op.Trans or not _fused_gates_ok(S, dtype):
-        return None
-    if use_fused != True and (rows_s < 1536 or cols_s < 1024):  # noqa: E712
-        # the fused call's contraction length is rows_s and its
-        # operator row count is cols_s; both gates from the measured
-        # boundary (see _fused_eligible / gate_sweep.py)
-        return None
-    from .dense import DenseDist, DenseDistName, dist_to_layout
-    from .base import Layout
-    from .ops import fused_sketch as fs
-
-    if S.dist.family == DenseDistName.BlackBox:
-        return None
-    dist_t = DenseDist(S.dist.n_cols, S.dist.n_rows, S.dist.family,
-                       S.dist.major_axis)
-    S_t = DenseSkOp(dist_t, S.seed_state, dtype=S.dtype)
-    if dist_to_layout(dist_t) == Layout.RowMajor:
-        if not fs.fused_sketch_supported(dist_t, cols_s, rows_s, co_s,
-                                         ro_s, Op.NoTrans, dtype):
-            return None
-        return fs.fused_sketch(S_t, a_mat, alpha=float(alpha),
-                               rows_s=cols_s, cols_s=rows_s,
-                               ro_s=co_s, co_s=ro_s)
-    if not fs.fused_sketch_colmajor_supported(dist_t, cols_s, rows_s,
-                                              co_s, ro_s, Op.NoTrans,
-                                              dtype):
-        return None
-    # same contraction gate as the NoTrans ColMajor route (the fused
-    # call's contraction length is rows_s; the rows_s >= 1536 gate above
-    # already covers its 1024 threshold)
-    return fs.fused_sketch_colmajor(S_t, a_mat, alpha=float(alpha),
-                                    rows_s=cols_s, cols_s=rows_s,
-                                    ro_s=co_s, co_s=ro_s)
-
-
-def _right_fused_or_none(S: DenseSkOp, a_mat, rows_s: int, cols_s: int,
-                         ro_s: int, co_s: int, op_s: Op, dtype, alpha):
-    """Right-side sketch through the fused kernel, or None to fall back.
-
-    B = a_mat @ op_s(block(S)) = (op_s(block(S))^T @ a_mat^T)^T. The
-    transposed operand is itself a fused-eligible implicit operator:
-    - op_s == Trans with S stored wide-RowMajor: the stored operator IS
-      the left operand.
-    - op_s == NoTrans with S stored tall-Long (natural ColMajor): by the
-      fill-order autotranspose property (tested in test_dense_fill.py),
-      the same seed drawn from the transposed distribution gives exactly
-      S^T, which is wide-RowMajor and fused-eligible.
-    Profitable far below the round-2 "operator dwarfs the data" guess:
-    the round-4 sweep (benchmarks/gate_sweep.py, m=32768, n=2048)
-    measured fused/staged = 1.10 at size ratio 0.5x, 1.60 at 1x, 1.84
-    at 2x, 2.05 at 4x, 2.16 at 8x — the staged side pays the full
-    operator fill, which dominates long before the operator outweighs
-    the data. Gate at 0.5x, the smallest measured-winning ratio;
-    below it is unmeasured territory and stays staged.
-    """
-    if S.materialized is not None or use_fused is False:
-        return None
-    if S.seed_state.rng not in ("philox4x32", "threefry4x32") \
-            or jnp.dtype(dtype) not in (jnp.dtype(jnp.float32),
-                                        jnp.dtype(jnp.bfloat16)):
-        return None
-    if not (use_fused is True or _tpu_backend()):
-        return None
-    if 2 * rows_s * cols_s < a_mat.size:
-        return None
-    from .dense import DenseDist, DenseDistName, dist_to_layout
-    from .base import Layout
-    from .ops.fused_sketch import fused_sketch, fused_sketch_supported
-
-    n = a_mat.shape[0]
     if op_s == Op.Trans:
-        # stored block (rows_s=d', cols_s=m...) acts as the left operand:
-        # contraction = cols_s, operator rows = rows_s — apply the left
-        # route's measured floors (gate_sweep: losses below 1536/512)
-        if use_fused != True and (cols_s < 1536 or rows_s < 512):  # noqa: E712
+        from .dense import DenseDist
+        if S.dist.n_rows == S.dist.n_cols:
             return None
-        if fused_sketch_supported(S.dist, rows_s, cols_s, ro_s, co_s,
-                                  Op.NoTrans, dtype):
-            return fused_sketch(S, a_mat.T, alpha=float(alpha),
-                                rows_s=rows_s, cols_s=cols_s,
-                                ro_s=ro_s, co_s=co_s).T
+        dist_t = DenseDist(S.dist.n_cols, S.dist.n_rows, S.dist.family,
+                           S.dist.major_axis)
+        S = DenseSkOp(dist_t, S.seed_state, dtype=S.dtype)
+        rows_s, cols_s, ro_s, co_s = cols_s, rows_s, co_s, ro_s
+    if not fs.fused_sketch_supported(S.dist, rows_s, cols_s, ro_s, co_s,
+                                     dtype, S.seed_state.rng):
         return None
-    # op_s == NoTrans: use the autotransposed distribution. The fused
-    # call's contraction is rows_s and its operator row count is cols_s
-    # — same measured floors as the left routes (review find: the 0.5x
-    # ratio gate alone would fuse short contractions the sweep only
-    # measured at m=32768).
-    if use_fused != True and (rows_s < 1536 or cols_s < 512):  # noqa: E712
+    if use_fused is not True and not (
+            backend.on_gpu()
+            and fs.fused_profitable(rows_s, cols_s, a_mat.shape[1])):
         return None
-    if S.dist.family == DenseDistName.BlackBox:
-        return None
-    dist_t = DenseDist(S.dist.n_cols, S.dist.n_rows, S.dist.family,
-                       S.dist.major_axis)
-    if dist_to_layout(dist_t) != Layout.RowMajor:
-        return None
-    if not fused_sketch_supported(dist_t, cols_s, rows_s, co_s, ro_s,
-                                  Op.NoTrans, dtype):
-        return None
-    S_t = DenseSkOp(dist_t, S.seed_state, dtype=S.dtype)
-    return fused_sketch(S_t, a_mat.T, alpha=float(alpha),
-                        rows_s=cols_s, cols_s=rows_s,
-                        ro_s=co_s, co_s=ro_s).T
+    return fs.fused_sketch(S, a_mat, alpha=float(alpha), rows_s=rows_s,
+                           cols_s=cols_s, ro_s=ro_s, co_s=co_s)
 
 
 def _sparse_left_apply(S: SparseSkOp, d: int, m: int, ro_s: int, co_s: int,
@@ -374,9 +172,7 @@ def _sparse_left_apply(S: SparseSkOp, d: int, m: int, ro_s: int, co_s: int,
     the reference's transposed COO view (spmm_dispatch.hh:74-76).
     """
     from .base import MajorAxis
-    from .ops.coo_apply import (
-        fixed_nnz_left_apply, onehot_panel_apply, row_gather_apply,
-    )
+    from .ops.coo_apply import row_gather_apply
 
     s = S.filled()
     # the reshape-based fast paths assume the canonical per-minor-vector
@@ -390,24 +186,9 @@ def _sparse_left_apply(S: SparseSkOp, d: int, m: int, ro_s: int, co_s: int,
     k = S.dist.vec_nnz
     if full and S.dist.n_rows < S.dist.n_cols:
         # wide SASO: fixed nnz per data column ("regular CSC",
-        # csc_spmm_impl.hh:68-88). On TPU: the Pallas in-VMEM one-hot
-        # kernel (ops/saso_sketch.py) when the shape qualifies (probe
-        # table: BENCH_LOCAL.md "SASO kernel", benchmarks/saso_probe.py)
-        # — else XLA one-hot MXU panels (no scatter, 17x faster than
-        # segment-sums there); elsewhere the compare-select panels are
-        # slow, so use per-t segment-sums.
-        from .ops.saso_sketch import saso_sketch
-        kern_ok, kern_interp = _saso_kernel_route(d, m, k, b_mat.shape[1],
-                                                  b_mat.dtype)
-        if kern_ok:
-            return saso_sketch(s.rows.reshape(m, k), s.vals.reshape(m, k),
-                               b_mat, d, alpha, interpret=kern_interp)
-        if _tpu_backend():
-            return onehot_panel_apply(s.rows.reshape(m, k),
-                                      s.vals.reshape(m, k), b_mat, d,
-                                      alpha)
-        return fixed_nnz_left_apply(s.rows.reshape(m, k),
-                                    s.vals.reshape(m, k), b_mat, d, alpha)
+        # csc_spmm_impl.hh:68-88)
+        return _saso_wide_apply(s.rows.reshape(m, k), s.vals.reshape(m, k),
+                                b_mat, d, alpha)
     if full and S.dist.n_rows > S.dist.n_cols:
         # tall SASO: fixed nnz per OUTPUT row -> pure gather
         return row_gather_apply(s.cols.reshape(d, k),
@@ -416,7 +197,7 @@ def _sparse_left_apply(S: SparseSkOp, d: int, m: int, ro_s: int, co_s: int,
     # transposed full-operator fast paths (the right-sketch reduction
     # arrives here with op_s == Trans, skge.hh's rskges analog): S^T of
     # a tall-Short SASO is wide with fixed nnz per COLUMN (the wide
-    # routes apply, incl. the Pallas kernel), S^T of a wide-Short SASO
+    # routes apply), S^T of a wide-Short SASO
     # is tall with fixed nnz per OUTPUT row (pure gather).
     trans_full = (s.canonical
                   and op_s == Op.Trans and ro_s == 0 and co_s == 0
@@ -425,17 +206,8 @@ def _sparse_left_apply(S: SparseSkOp, d: int, m: int, ro_s: int, co_s: int,
     if trans_full and S.dist.n_rows > S.dist.n_cols:
         # tall S: row r holds k column indices -> S^T has those rows
         # in column r
-        from .ops.saso_sketch import saso_sketch
-        idx = s.cols.reshape(m, k)
-        w = s.vals.reshape(m, k)
-        kern_ok, kern_interp = _saso_kernel_route(d, m, k, b_mat.shape[1],
-                                                  b_mat.dtype)
-        if kern_ok:
-            return saso_sketch(idx, w, b_mat, d, alpha,
-                               interpret=kern_interp)
-        if _tpu_backend():
-            return onehot_panel_apply(idx, w, b_mat, d, alpha)
-        return fixed_nnz_left_apply(idx, w, b_mat, d, alpha)
+        return _saso_wide_apply(s.cols.reshape(m, k), s.vals.reshape(m, k),
+                                b_mat, d, alpha)
     if trans_full and S.dist.n_rows < S.dist.n_cols:
         # wide S: column c holds k row indices -> S^T row c gathers them
         return row_gather_apply(s.rows.reshape(d, k),
@@ -510,19 +282,9 @@ def sketch_general(
         elif isinstance(S, SparseSkOp):
             prod = _sparse_left_apply(S, d, m, ro_s, co_s, op_s, a_mat,
                                       alpha)
-        elif _fused_eligible(S, rows_s, cols_s, ro_s, co_s, op_s, dtype):
-            from .ops import fused_sketch as fs
-            prod = fs.fused_sketch(S, a_mat, alpha=float(alpha),
-                                   rows_s=rows_s, cols_s=cols_s,
-                                   ro_s=ro_s, co_s=co_s)
         else:
-            prod = _left_colmajor_fused_or_none(S, a_mat, rows_s, cols_s,
-                                                ro_s, co_s, op_s, dtype,
-                                                alpha)
-            if prod is None:
-                prod = _left_trans_fused_or_none(S, a_mat, rows_s, cols_s,
-                                                 ro_s, co_s, op_s, dtype,
-                                                 alpha)
+            prod = _fused_or_none(S, a_mat, rows_s, cols_s, ro_s, co_s,
+                                  op_s, dtype, alpha)
             if prod is None:
                 require(use_fused is not True,
                         "fused sketch path forced but call is unsupported")
@@ -557,9 +319,15 @@ def sketch_general(
             prod = _sparse_left_apply(S, d, m, ro_s, co_s, flipped, a_mat.T,
                                       alpha).T
         else:
-            prod = _right_fused_or_none(S, a_mat, rows_s, cols_s, ro_s,
-                                        co_s, op_s, dtype, alpha)
-            if prod is None:
+            # A @ op_s(S) = (flip(op_s)(S) @ A^T)^T
+            flipped = Op.NoTrans if op_s == Op.Trans else Op.Trans
+            prod = _fused_or_none(S, a_mat.T, rows_s, cols_s, ro_s, co_s,
+                                  flipped, dtype, alpha)
+            if prod is not None:
+                prod = prod.T
+            else:
+                require(use_fused is not True,
+                        "fused sketch path forced but call is unsupported")
                 s_blk = _dense_block(S, rows_s, cols_s, ro_s, co_s, op_s,
                                      dtype)
                 prod = jnp.asarray(alpha, dtype) * _matmul(a_mat, s_blk,

@@ -1,6 +1,6 @@
 """sketch_sparse: dense sketching operators applied to sparse data matrices.
 
-TPU-native counterpart of RandBLAS/sparse_data/sksp.hh (lsksp3 :148-192,
+Counterpart of RandBLAS/sparse_data/sksp.hh (lsksp3 :148-192,
 rsksp3 :303-345, sketch_sparse :465-485,596-616). The dense operator block
 is generated from counters (never the full operator), then combined with the
 sparse data through the SpMM path.

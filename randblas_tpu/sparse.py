@@ -1,6 +1,6 @@
 """Sparse-sign sketching operators (SASO/LASO).
 
-TPU-native counterpart of RandBLAS/sparse_skops.hh. A SparseSkOp samples,
+Counterpart of RandBLAS/sparse_skops.hh. A SparseSkOp samples,
 per major-axis vector, ``vec_nnz`` indices *without replacement* via
 repeated Fisher-Yates, with ±1 values — reproducing the reference's exact
 counter consumption (one CBRNG block per FY step, vector i starting at

@@ -1,6 +1,6 @@
 """Sparse data matrices (COO/CSR/CSC), conversions, and SpMM.
 
-TPU-native counterpart of RandBLAS/sparse_data/ (see SURVEY.md §2 rows
+Counterpart of RandBLAS/sparse_data/ (see SURVEY.md §2 rows
 14-19).
 """
 

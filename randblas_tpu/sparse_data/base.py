@@ -1,6 +1,6 @@
 """Sparse-matrix containers: shared helpers.
 
-TPU-native counterpart of RandBLAS/sparse_data/base.hh. Containers are
+Counterpart of RandBLAS/sparse_data/base.hh. Containers are
 frozen pytrees over jnp index/value arrays with static shape metadata, so
 they pass through jit/shard_map. nnz is static (a python int), which is
 what XLA needs anyway.

@@ -1,6 +1,6 @@
 """ELL (ELLPACK) sparse matrices: fixed nonzeros-per-row with padding.
 
-The TPU-native sparse-data format: a row-major (n_rows, width) table of
+A fixed-width sparse-data format: a row-major (n_rows, width) table of
 column indices + values, padded with zero-valued entries. Products become
 pure gathers + weighted sums — no scatters, no segment reductions — which
 is how irregular sparsity should meet a vector unit (SURVEY.md §7 hard
@@ -92,8 +92,8 @@ class ELLMatrix:
 
     def blocked(self, kb: int = 128, bw_cap: int = None,
                 word_major: int = 0):
-        """One-time host-side conversion to BlockedELL, the Pallas SpMM
-        kernel's format (ops/ell_spmm.py). Concrete arrays required.
+        """One-time host-side conversion to BlockedELL (ops/ell_spmm.py).
+        Concrete arrays required.
         bw_cap caps the per-(row, block) slot count, sending the excess
         through a COO overflow pass (two-tier form). word_major=4 builds
         the tables for word-major operand storage — the order an implicit

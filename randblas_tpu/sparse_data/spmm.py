@@ -1,10 +1,11 @@
 """SpMM: sparse x dense products with submatrix offsets and op flags.
 
-TPU-native counterpart of RandBLAS/sparse_data/spmm_dispatch.hh
-(left_spmm :49-160, right_spmm :163-200, public spmm :291,381). Every
-format funnels into the gather/segment-sum COO apply (ops/coo_apply.py) —
-the TPU replacement for the reference's per-format CPU kernels; transposes
-are zero-copy index-role swaps like the reference's transposed views.
+Counterpart of RandBLAS/sparse_data/spmm_dispatch.hh (left_spmm
+:49-160, right_spmm :163-200, public spmm :291,381). Every format funnels
+into the XLA COO apply (ops/coo_apply.py: gather/segment-sum or
+scatter-densify + GEMM) in place of the reference's per-format CPU
+kernels; transposes are zero-copy index-role swaps like the reference's
+transposed views.
 
 NOTE: the reference's right-sided `spmm` wrapper has an argument bug
 (spmm_dispatch.hh:382 passes B twice) — intentionally not replicated.
@@ -31,53 +32,6 @@ def _as_op(op) -> Op:
     if s in ("T", "TRANS"):
         return Op.Trans
     raise ValueError(f"invalid op: {op!r}")
-
-
-# Auto-route big full untransposed CSR/CSC/COO products through the
-# blocked-ELL Pallas kernel (one-time host conversion, cached on the
-# matrix object — the analog of the reference pre-sorting COO into CSC
-# inside its apply, coo_spmm_impl.hh:98-104). False disables.
-auto_blocked_ell = True
-
-
-def _blocked_ell_or_none(A, b_mat):
-    """A cached BlockedELL view of A for the Pallas SpMM kernel, or None
-    when conversion is impossible (traced data) or unprofitable."""
-    import jax.core
-    from ..ops import ell_spmm
-    if not auto_blocked_ell:
-        return None
-    if not (ell_spmm.force_interpret or _tpu_platform()):
-        return None
-    cached = getattr(A, "_bell_cache", None)
-    if cached is not None:
-        return cached
-    coo = to_coo(A)
-    if any(isinstance(x, jax.core.Tracer)
-           for x in (coo.rows, coo.cols, coo.vals)):
-        return None
-    # profitability: enough columns to feed the MXU, enough nonzeros to
-    # dwarf the conversion, and slot width that doesn't densify the tiles
-    if b_mat.shape[1] < 128 or coo.nnz < (1 << 15):
-        return None
-    from .ell import ELLMatrix
-    bell = ELLMatrix.from_coo(coo).blocked()
-    if bell.bw > 16:
-        return None  # near-dense row blocks: XLA panels win
-    try:
-        object.__setattr__(A, "_bell_cache", bell)
-    except (AttributeError, TypeError):
-        pass
-    return bell
-
-
-def _tpu_platform() -> bool:
-    try:
-        dev = jax.devices()[0]
-        return dev.platform == "tpu" or \
-            "TPU" in getattr(dev, "device_kind", "")
-    except Exception:
-        return False
 
 
 def left_spmm(
@@ -113,8 +67,7 @@ def left_spmm(
         require(A.b_rows == b_mat.shape[0],
                 "inner dimension mismatch (word-major operands must be in "
                 "storage order, ops/ell_spmm.py::to_word_major_rows)")
-        prod = ell_spmm.blocked_ell_matmul(
-            A, b_mat, alpha, interpret=ell_spmm.force_interpret)
+        prod = ell_spmm.blocked_ell_matmul(A, b_mat, alpha)
         if out is not None:
             require(tuple(out.shape) == prod.shape, "out shape mismatch")
             from ..ops.accumulate import accumulate
@@ -133,22 +86,6 @@ def left_spmm(
             from ..ops.accumulate import accumulate
             return accumulate(prod, beta, out)
         return prod
-    if (op_a == Op.NoTrans and ro_a == 0 and co_a == 0
-            and not isinstance(A, ELLMatrix)
-            and (d is None or d == getattr(A, "n_rows", None))):
-        b_mat = B if op_b == Op.NoTrans else B.T
-        if getattr(A, "n_cols", None) == b_mat.shape[0]:
-            bell = _blocked_ell_or_none(A, b_mat)
-            if bell is not None:
-                prod = ell_spmm.blocked_ell_matmul(
-                    bell, b_mat, alpha,
-                    interpret=ell_spmm.force_interpret)
-                if out is not None:
-                    require(tuple(out.shape) == prod.shape,
-                            "out shape mismatch")
-                    from ..ops.accumulate import accumulate
-                    return accumulate(prod, beta, out)
-                return prod
     coo = to_coo(A)
     rows, cols = coo.rows, coo.cols
     n_rows_a, n_cols_a = coo.n_rows, coo.n_cols

@@ -15,14 +15,14 @@ Kronecker-structured regression.
 The CountSketch components C_i ARE this library's sparse sign operators
 with vec_nnz=1 (SparseDist's Short-axis draw places exactly one ±1 in a
 uniformly random row per column — the CountSketch hash/sign pair), so
-each factor's sketch rides the existing lskges dispatch (one-hot MXU
+each factor's sketch rides the existing lskges dispatch (one-hot GEMM
 panels / row gather) and the whole transform is deterministic in the
 RNGState and seed-chained across factors. The reference has no tensor
 sketching; the counterpart machinery it does have is the SASO family
 this is built from (/root/reference/RandBLAS/sparse_skops.hh:134-377).
 
-TPU notes: the d-point FFTs run along the sketch axis (columns stay on
-lanes, n-major); real input rides rfft/irfft so the spectral product is
+Accelerator notes: the d-point FFTs run along the sketch axis (n-major
+columns); real input rides rfft/irfft so the spectral product is
 on d/2+1 complex words. Everything is jittable; for gradients the
 factor sketches use the SASO path's exact autodiff.
 """
@@ -205,7 +205,7 @@ def kfjlt_sketch(factors: Sequence, d: int, state: RNGState, *,
     Returns ``(out (d, n), next_state)``; isometry scale is INCLUDED
     (E[S^T S] = I, see kfjlt_scale). ``precision`` forwards to the
     per-mode Hadamard stage contractions (None = backend default, i.e.
-    bf16-on-MXU on TPU; pass 'highest' when the sketch is the ONLY
+    TF32 on the GPU; pass 'highest' when the sketch is the ONLY
     view of the data kept downstream).
     """
     require(len(factors) >= 1, "kfjlt_sketch needs at least one factor")

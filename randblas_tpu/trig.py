@@ -10,7 +10,7 @@ with D = diag(+-1) counter-addressed Rademacher signs, H the
 (unnormalized, +-1) Walsh–Hadamard transform of order m_pad =
 next_pow2(m), and R a uniform iid row sampler (with replacement,
 matching sample_indices_iid_uniform / util.hh:310-334). Applying S to
-(m, n) data costs O(m n log m) MXU flops — independent of d — versus
+(m, n) data costs O(m n log m) flops — independent of d — versus
 O(d m n) for a dense Gaussian sketch, while giving the same
 subspace-embedding guarantees up to log factors.
 

@@ -1,6 +1,6 @@
 """Utilities: CDF sampling, symmetry helpers.
 
-TPU-native counterpart of RandBLAS/util.hh. The buffer-manipulation helpers
+Counterpart of RandBLAS/util.hh. The buffer-manipulation helpers
 (omatcopy/flip_layout/transpose_square) have no role on jnp arrays; the
 statistically meaningful utilities are ported with identical stream
 semantics.

@@ -3,7 +3,7 @@ test_live_two_process_distributed_sketch). Not collected by pytest.
 
 Each process: 2 virtual CPU devices, jax.distributed over a localhost
 coordinator (XLA's gloo CPU collectives — the same cross-process
-collective machinery a DCN-connected TPU pod uses, modulo transport),
+collective machinery a multi-host cluster uses, modulo transport),
 a process-contiguous ('model','data') mesh from
 make_multihost_sketch_mesh, one distributed_sketch, oracle check of the
 locally addressable output shards.

@@ -141,6 +141,40 @@ def assert_componentwise_close(actual, lhs, rhs, *, alpha=1.0, beta=0.0,
             f"{bound[i, j]:.3e} ({int(bad.sum())}/{bad.size} entries)")
 
 
+# TF32 keeps 10 explicit mantissa bits: converting an f32 operand to it
+# moves each entry by less than 2^-10 of its magnitude, whichever
+# rounding mode the conversion uses.
+TF32_INPUT_REL = 2.0 ** -10
+
+
+def tf32_bound(lhs, rhs):
+    """Per-entry error bound of lhs @ rhs computed with TF32 operands and
+    f32 accumulation: (2 * 2^-10 + 2 k eps_f32) * |lhs| @ |rhs| — both
+    operands' input rounding plus the componentwise accumulation bound
+    (componentwise_bound's doubled k*eps convention)."""
+    lhs = np.abs(np.asarray(lhs, dtype=np.float64))
+    rhs = np.abs(np.asarray(rhs, dtype=np.float64))
+    k = lhs.shape[1]
+    eps = float(np.finfo(np.float32).eps)
+    return (2 * TF32_INPUT_REL + 2 * k * eps) * (lhs @ rhs)
+
+
+def assert_tf32_close(actual, lhs, rhs):
+    """Check actual == lhs @ rhs within tf32_bound (expected value in
+    float64)."""
+    actual = np.asarray(actual, dtype=np.float64)
+    expect = np.asarray(lhs, np.float64) @ np.asarray(rhs, np.float64)
+    bound = tf32_bound(lhs, rhs)
+    err = np.abs(actual - expect)
+    bad = err > bound
+    if bad.any():
+        i, j = np.unravel_index(np.argmax(err - bound), err.shape)
+        raise AssertionError(
+            f"TF32 bound violated at ({i},{j}): |{actual[i, j]} - "
+            f"{expect[i, j]}| = {err[i, j]:.3e} > {bound[i, j]:.3e} "
+            f"({int(bad.sum())}/{bad.size} entries)")
+
+
 def fisher_yates_oracle(ctr, key, vec_nnz, dim_major, dim_minor):
     """Serial repeated Fisher-Yates with an explicit work vector and the
     restore step, mirroring the documented sampler semantics."""

@@ -324,34 +324,20 @@ def test_arnoldi_happy_breakdown_zeroes_columns():
 
 
 def test_pallas_fill_interp_flag_is_live():
-    """flags(use_pallas_fill='interp') must actually route through the
-    Pallas fill (interpret mode off-TPU); uniform streams are exact
-    float arithmetic, so the block must be bit-identical to the XLA
-    fill."""
+    """The staged operator block is the XLA fill, whatever dispatch
+    flags are in scope: uniform streams are exact float arithmetic, so
+    the block is bit-identical to fill_dense_submat."""
     import randblas_tpu as rb
+    from randblas_tpu.dense import fill_dense_submat
     from randblas_tpu.skge import _dense_block
     from randblas_tpu.base import Op
-    from randblas_tpu.ops import fused_sketch as fs
     S = rb.DenseSkOp(rb.DenseDist(16, 64, family=rb.DenseDistName.Uniform),
                      rb.RNGState.from_key(9))
-    if not fs.pallas_fill_supported(S.dist, jnp.float32, S.seed_state.rng):
-        pytest.skip("pallas fill does not support this dist")
-    base = _dense_block(S, 16, 64, 0, 0, Op.NoTrans, jnp.float32)
-    calls = {}
-    orig = fs.pallas_fill_block
-
-    def spy(*a, **k):
-        calls["interpret"] = k.get("interpret")
-        return orig(*a, **k)
-
-    fs.pallas_fill_block = spy
-    try:
-        with rb.flags(use_pallas_fill="interp"):
+    base = fill_dense_submat(S.dist, S.seed_state, 16, 64, 0, 0)
+    for use_fused in ("auto", True, False):
+        with rb.flags(use_fused=use_fused):
             blk = _dense_block(S, 16, 64, 0, 0, Op.NoTrans, jnp.float32)
-    finally:
-        fs.pallas_fill_block = orig
-    assert calls.get("interpret") is True
-    np.testing.assert_array_equal(np.asarray(blk), np.asarray(base))
+        np.testing.assert_array_equal(np.asarray(blk), np.asarray(base))
 
 
 # -- ADVICE round 4 (all four findings) --------------------------------------

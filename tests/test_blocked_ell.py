@@ -1,4 +1,4 @@
-"""BlockedELL format + Pallas SpMM kernel (interpret mode on CPU)."""
+"""BlockedELL format + its plain-XLA SpMM (compare-select densify + GEMM)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,13 +32,9 @@ def test_blocked_matmul_vs_dense(m, k, n):
     ell, dense = _ell(m, k, seed=7 * m + n)
     bell = ell.blocked()
     b = RNG.normal(size=(k, n)).astype(np.float32)
-    got = np.asarray(blocked_ell_matmul(bell, jnp.asarray(b), alpha=-0.5,
-                                        interpret=True))
+    got = np.asarray(blocked_ell_matmul(bell, jnp.asarray(b), alpha=-0.5))
     want = -0.5 * dense @ b
     scale = np.abs(want).max() or 1.0
-    # the kernel contracts in bf16 (the chip's effective f32-GEMM
-    # precision under excess-precision), same contract as the fused
-    # sketch kernel
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-2)
 
 
@@ -50,7 +46,7 @@ def test_blocked_duplicate_entries_accumulate():
     coo = COOMatrix.from_arrays(2, 4, rows, cols, vals)
     bell = coo_to_ell(coo).blocked()
     b = jnp.eye(4, dtype=jnp.float32)
-    got = np.asarray(blocked_ell_matmul(bell, b, interpret=True))
+    got = np.asarray(blocked_ell_matmul(bell, b))
     want = np.zeros((2, 4), np.float32)
     want[0, 3] = 3.0
     want[0, 2] = -1.0
@@ -62,14 +58,12 @@ def test_blocked_zero_matrix():
     ell = ELLMatrix.from_dense(jnp.zeros((16, 32), jnp.float32))
     bell = ell.blocked()
     b = jnp.asarray(RNG.normal(size=(32, 8)).astype(np.float32))
-    got = np.asarray(blocked_ell_matmul(bell, b, interpret=True))
+    got = np.asarray(blocked_ell_matmul(bell, b))
     np.testing.assert_array_equal(got, 0.0)
 
 
-def test_left_spmm_blocked_ell_route(monkeypatch):
-    from randblas_tpu.ops import ell_spmm
+def test_left_spmm_blocked_ell_route():
     from randblas_tpu.sparse_data import left_spmm
-    monkeypatch.setattr(ell_spmm, "force_interpret", True)
     ell, dense = _ell(80, 300, seed=5)
     bell = ell.blocked()
     b = RNG.normal(size=(300, 24)).astype(np.float32)
@@ -83,11 +77,9 @@ def test_left_spmm_blocked_ell_route(monkeypatch):
                                     jnp.float32), op_a="T")
 
 
-def test_sketch_sparse_right_blocked_ell(monkeypatch):
-    from randblas_tpu.ops import ell_spmm
+def test_sketch_sparse_right_blocked_ell():
     from randblas_tpu import (DenseDist, DenseSkOp, RNGState,
                               sketch_sparse)
-    monkeypatch.setattr(ell_spmm, "force_interpret", True)
     ell, dense = _ell(60, 200, seed=9)
     bell = ell.blocked()
     S = DenseSkOp(DenseDist(200, 16), RNGState.from_key(2))
@@ -97,27 +89,22 @@ def test_sketch_sparse_right_blocked_ell(monkeypatch):
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-2)
 
 
-def test_left_spmm_auto_blocked_ell(monkeypatch):
-    """Concrete CSR/COO operands auto-route through the cached BlockedELL
-    conversion when the product is big enough (spmm._blocked_ell_or_none)."""
-    from randblas_tpu.ops import ell_spmm
+def test_left_spmm_auto_blocked_ell():
+    """Concrete CSR/COO operands take the COO route as they are: no
+    BlockedELL conversion happens behind the caller's back (only an
+    explicit BlockedELL operand takes the BlockedELL product)."""
     from randblas_tpu.sparse_data import left_spmm
     from randblas_tpu.sparse_data.conversions import coo_to_csr
     from randblas_tpu.sparse_data.ell import ell_to_coo
-    monkeypatch.setattr(ell_spmm, "force_interpret", True)
     ell, dense = _ell(256, 2048, density=0.02, seed=13)
     coo = ell_to_coo(ell)
     b = RNG.normal(size=(2048, 128)).astype(np.float32)
     csr = coo_to_csr(coo)
-    # the shape is below the nnz profitability floor; seed the cache so the
-    # route is taken (cache-hit path is exactly the hot production path)
-    object.__setattr__(csr, "_bell_cache", ell.blocked())
     got = np.asarray(left_spmm(csr, jnp.asarray(b)))
     want = dense @ b
     scale = np.abs(want).max() or 1.0
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-2)
-    # the cache sticks to the object
-    assert getattr(csr, "_bell_cache", None) is not None
+    assert getattr(csr, "_bell_cache", None) is None
 
 
 @pytest.mark.parametrize("m,k", [(300, 2100), (64, 500), (513, 1025)])
@@ -136,7 +123,7 @@ def test_word_major_matmul_vs_dense(k):
     bell = ell.blocked(word_major=4)
     b = RNG.normal(size=(k, 64)).astype(np.float32)
     got = np.asarray(blocked_ell_matmul(
-        bell, to_word_major_rows(jnp.asarray(b), 4, k), interpret=True))
+        bell, to_word_major_rows(jnp.asarray(b), 4, k)))
     want = dense @ b
     scale = np.abs(want).max() or 1.0
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-2)
@@ -144,28 +131,26 @@ def test_word_major_matmul_vs_dense(k):
 
 def test_word_major_two_tier_overflow():
     """bw_cap overflow columns stay in storage order (the COO pass reads
-    the same word-major operand the kernel does)."""
+    the same word-major operand the slot tables do)."""
     from randblas_tpu.ops.ell_spmm import to_word_major_rows
     ell, dense = _ell(64, 512, density=0.2, seed=21)
     bell = ell.blocked(word_major=4, bw_cap=8)
     assert bell.ovf_nnz > 0
     b = RNG.normal(size=(512, 32)).astype(np.float32)
     got = np.asarray(blocked_ell_matmul(
-        bell, to_word_major_rows(jnp.asarray(b), 4, 512), interpret=True))
+        bell, to_word_major_rows(jnp.asarray(b), 4, 512)))
     want = dense @ b
     scale = np.abs(want).max()
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-2)
 
 
-def test_sketch_sparse_right_word_major(monkeypatch):
+def test_sketch_sparse_right_word_major():
     """The implicit-operator fast path: plane fill feeds the word-major
-    kernel with zero interleave; values match the natural-order route
+    product with zero interleave; values match the natural-order route
     and the densify oracle (dense.skop_word_major_rows)."""
-    from randblas_tpu.ops import ell_spmm
     from randblas_tpu import (DenseDist, DenseDistName, DenseSkOp,
                               RNGState, sketch_sparse)
     from randblas_tpu.dense import skop_word_major_rows
-    monkeypatch.setattr(ell_spmm, "force_interpret", True)
     ell, dense = _ell(60, 250, seed=9)  # 250 % 4 != 0
     bell = ell.blocked(word_major=4)
     S = DenseSkOp(DenseDist(250, 16), RNGState.from_key(2))
@@ -198,10 +183,9 @@ def test_word_major_phantom_rows_are_zero():
     """Operator height one short of the bell's column count within the
     same 4-block: the plane fill's phantom storage rows must be ZERO, or
     the bell's last real column multiplies generated garbage
-    (code-review finding, round 3; the padding invariant)."""
+    (code-review finding; the padding invariant)."""
     from randblas_tpu import DenseDist, DenseSkOp, RNGState, sketch_sparse
     from randblas_tpu.dense import skop_word_major_rows
-    from randblas_tpu.ops import ell_spmm
 
     ell, dense = _ell(32, 250, seed=77)
     bell = ell.blocked(word_major=4)
@@ -212,27 +196,20 @@ def test_word_major_phantom_rows_are_zero():
         wm.shape[0]) // nblk
     assert np.all(np.asarray(wm)[k_of_s >= 249] == 0.0)
     # end to end: window semantics (data col 249 multiplies zero)
-    import pytest as _pytest
-    _pytest.MonkeyPatch().setattr(ell_spmm, "force_interpret", True)
-    try:
-        got = np.asarray(sketch_sparse(S, bell, side="right"))
-        want = dense[:, :249] @ np.asarray(S.materialize())
-        scale = np.abs(want).max()
-        np.testing.assert_allclose(got / scale, want / scale, atol=2e-2)
-    finally:
-        ell_spmm.force_interpret = False
+    got = np.asarray(sketch_sparse(S, bell, side="right"))
+    want = dense[:, :249] @ np.asarray(S.materialize())
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got / scale, want / scale, atol=2e-2)
 
 
-def test_word_major_left_side(monkeypatch):
-    """side='left' sketch_sparse must hand the word-major kernel a
-    storage-ordered operand too (code-review finding, round 3)."""
+def test_word_major_left_side():
+    """side='left' sketch_sparse must hand the word-major product a
+    storage-ordered operand too (code-review finding)."""
     from randblas_tpu import DenseDist, DenseSkOp, RNGState, sketch_sparse
-    from randblas_tpu.ops import ell_spmm
-    monkeypatch.setattr(ell_spmm, "force_interpret", True)
     ell, dense = _ell(32, 256, seed=13)
     bell = ell.blocked(word_major=4)
     S = DenseSkOp(DenseDist(16, 256), RNGState.from_key(5))
-    # B = S @ A^T: the operand handed to the kernel is S^T-derived
+    # B = S @ A^T: the operand handed to the product is S^T-derived
     got = np.asarray(sketch_sparse(S, bell, side="left", op_a="T"))
     want = np.asarray(S.materialize()) @ dense.T
     scale = np.abs(want).max()

@@ -5,8 +5,7 @@ the auto dispatch between them.
 Counterpart of the reference's COO kernel tests
 (test/test_matmul_cores/test_spmm/test_spmm_coo.cc): every strategy is
 checked against a densify+matmul numpy oracle, over submatrix windows
-and alpha scales. On TPU these paths are scatter-bound; the dispatch
-constants come from measurements in benchmarks/coo_probe.py.
+and alpha scales.
 """
 
 import numpy as np

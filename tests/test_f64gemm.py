@@ -68,7 +68,7 @@ def test_sketch_general_f64_matches_f64_oracle():
 
 
 def test_sketch_general_f64_forced_hiprec():
-    # force the sliced path (normally auto-selected on TPU only)
+    # force the sliced path ("auto" uses the native f64 matmul)
     from randblas_tpu import skge
     d, m, n = 8, 100, 6
     S = DenseSkOp(DenseDist(d, m), RNGState.from_key(6), dtype=jnp.float64)

@@ -9,11 +9,11 @@ from randblas_tpu import flags, get_flag, set_flag
 
 def test_flags_scope_and_restore():
     assert get_flag("use_fused") == "auto"
-    with flags(use_fused=False, auto_blocked_ell=False):
+    with flags(use_fused=False, use_native_x64=False):
         assert get_flag("use_fused") is False
-        assert get_flag("auto_blocked_ell") is False
+        assert get_flag("use_native_x64") is False
     assert get_flag("use_fused") == "auto"
-    assert get_flag("auto_blocked_ell") is True
+    assert get_flag("use_native_x64") == "auto"
 
 
 def test_flags_restore_on_exception():

@@ -1,6 +1,6 @@
-"""Fused dispatch coverage (round-2): left op_s=Trans via autotranspose,
-unaligned column offsets via top-padding, route assertions, fused
-distributed_sketch_right. All Pallas runs in interpret mode on CPU."""
+"""Fused dispatch coverage: left op_s=Trans via autotranspose, unaligned
+column offsets via top-padding, route assertions, fused
+distributed_sketch_right. The kernel runs in the Pallas interpreter."""
 
 import jax
 import jax.numpy as jnp
@@ -123,18 +123,21 @@ def test_fused_distributed_sketch_right():
 
 @pytest.fixture
 def colmajor_route(monkeypatch):
-    """Force fused dispatch and record ColMajor-kernel entries."""
+    """Force fused dispatch and record kernel entries whose operator is
+    ColMajor-natural (the kernel's stride_axis=1 orientation)."""
     monkeypatch.setattr(skge, "use_fused", True)
+    from randblas_tpu.base import Layout
+    from randblas_tpu.dense import dist_to_layout
     from randblas_tpu.ops import fused_sketch as fs
     rec = RouteRecorder()
-    orig = fs.fused_sketch_colmajor
+    orig = fs.fused_sketch
 
-    def interp(*args, **kwargs):
-        rec.calls += 1
+    def interp(S, *args, **kwargs):
+        rec.calls += dist_to_layout(S.dist) == Layout.ColMajor
         kwargs["interpret"] = True
-        return orig(*args, **kwargs)
+        return orig(S, *args, **kwargs)
 
-    monkeypatch.setattr(fs, "fused_sketch_colmajor", interp)
+    monkeypatch.setattr(fs, "fused_sketch", interp)
     yield rec
 
 
@@ -213,7 +216,7 @@ def test_threefry_fused_colmajor(colmajor_route):
 
 def test_bf16_data_routes_fused(fused_route):
     """bfloat16 data streams through the fused kernel uncast (half the
-    HBM traffic) and returns a bf16 sketch."""
+    device-memory traffic) and returns a bf16 sketch."""
     d, m, n = 32, 256, 16
     S = DenseSkOp(DenseDist(d, m), RNGState.from_key(31))
     A = _data(m, n, 31).astype(jnp.bfloat16)

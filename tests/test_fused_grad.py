@@ -1,13 +1,14 @@
-"""Autodiff through the fused RNG-in-GEMM kernels (jax.custom_vjp).
+"""Autodiff through the RNG-in-GEMM kernel (jax.custom_vjp), in the
+Pallas interpreter.
 
 The sketch is linear in A, so its cotangent is the transposed sketch
-block^T @ g — computed by the OTHER fused kernel on the transposed
-distribution (fill-order autotranspose property), regenerating the
-operator from counters. Nothing is stored for the backward pass except
-the seed. First-order reverse-mode only (custom_vjp); forward-mode /
-higher-order users should scope flags(use_fused=False).
+block^T @ g — computed by the same kernel in the other counter
+orientation with the same seed, regenerating the operator from counters.
+Nothing is stored for the backward pass except the seed. First-order
+reverse-mode only (custom_vjp); forward-mode / higher-order users should
+scope flags(use_fused=False).
 
-The reference has no autodiff surface; this is TPU/JAX-native.
+The reference has no autodiff surface; this is JAX-native.
 """
 
 import numpy as np
@@ -35,7 +36,7 @@ def test_rowmajor_grad_vs_staged():
         fs.fused_sketch(S, a, alpha=0.5, interpret=True) ** 2))(A)
     g_ref = jax.grad(lambda a: jnp.sum(
         (0.5 * (S.materialize() @ a)) ** 2))(A)
-    assert _rel(g, g_ref) < 1e-2   # bf16-dot precision
+    assert _rel(g, g_ref) < 1e-2
 
 
 @pytest.mark.slow
@@ -43,7 +44,7 @@ def test_colmajor_grad_vs_staged():
     S = rb.DenseSkOp(rb.DenseDist(96, 32), rb.RNGState.from_key(2))
     A = jnp.asarray(RNG.normal(size=(32, 16)).astype(np.float32))
     g = jax.grad(lambda a: jnp.sum(
-        fs.fused_sketch_colmajor(S, a, interpret=True) ** 2))(A)
+        fs.fused_sketch(S, a, interpret=True) ** 2))(A)
     g_ref = jax.grad(lambda a: jnp.sum((S.materialize() @ a) ** 2))(A)
     assert _rel(g, g_ref) < 1e-2
 
@@ -108,14 +109,14 @@ def test_bf16_grad_dtype():
 
 def test_forward_values_unchanged():
     """The custom_vjp wrapper must not perturb primal values (bitwise
-    vs the pre-wrapper behavior: the kernel output itself)."""
+    vs the kernel call without it)."""
     S = rb.DenseSkOp(rb.DenseDist(16, 64), rb.RNGState.from_key(8))
     A = jnp.asarray(RNG.normal(size=(64, 8)).astype(np.float32))
     out = fs.fused_sketch(S, A, interpret=True)
-    from randblas_tpu.rng.state import RNGState
-    direct = fs._fused_rowmajor_primal(
-        S.dist, S.seed_state, jnp.asarray(A, jnp.float32), 1.0, True,
-        16, 64, 0, 0)
+    st = S.seed_state
+    direct = fs._call(fs.seed_words(st.counter, st.key), A, d=16,
+                      gaussian=True, ctr_stride=16, stride_axis=0,
+                      rng=st.rng, interpret=True)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(direct))
 
 
@@ -133,7 +134,7 @@ def test_sparse_operator_grad():
 
 def test_coo_spmm_grad():
     """COO SpMM differentiates exactly (the differentiable sparse-data
-    route; the BlockedELL kernel is forward-only — docs/sketching.md)."""
+    route)."""
     from randblas_tpu.sparse_data import COOMatrix
     rng = np.random.default_rng(1)
     dense = ((rng.random((20, 40)) < 0.2)
@@ -148,23 +149,19 @@ def test_coo_spmm_grad():
 
 @pytest.mark.slow
 def test_square_dist_grad():
-    """A square dist transposes to itself (the layout does not flip), so
-    the backward pass must NOT use the autotranspose fused route — it
-    falls back to the staged block^T (code-review finding, round 3).
-    square+Long is ColMajor-natural, square+Short RowMajor-natural; each
-    goes through its matching kernel (the other kernel asserts)."""
+    """A square dist transposes to itself (the layout does not flip), yet
+    the cotangent must still be block^T @ g: the backward pass flips the
+    kernel's counter orientation, not the distribution. square+Long is
+    ColMajor-natural, square+Short RowMajor-natural."""
     from randblas_tpu.base import MajorAxis
-    cases = [
-        (MajorAxis.Long, fs.fused_sketch_colmajor),
-        (MajorAxis.Short, fs.fused_sketch),
-    ]
+    fn = fs.fused_sketch
     A = jnp.asarray(RNG.normal(size=(32, 8)).astype(np.float32))
-    for ma, fn in cases:
+    for ma in (MajorAxis.Long, MajorAxis.Short):
         S = rb.DenseSkOp(rb.DenseDist(32, 32, major_axis=ma),
                          rb.RNGState.from_key(12))
         out = fn(S, A, interpret=True)
         want = S.materialize() @ A
-        assert _rel(out, want) < 1e-2, (fn.__name__, "forward")
+        assert _rel(out, want) < 1e-2, (ma, "forward")
         g = jax.grad(lambda a: jnp.sum(fn(S, a, interpret=True) ** 2))(A)
         g_ref = jax.grad(lambda a: jnp.sum((S.materialize() @ a) ** 2))(A)
-        assert _rel(g, g_ref) < 1e-2, fn.__name__
+        assert _rel(g, g_ref) < 1e-2, ma

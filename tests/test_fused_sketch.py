@@ -1,16 +1,16 @@
-"""Fused Pallas kernel: interpreter-mode coverage on CPU.
+"""RNG-in-GEMM kernel: interpreter-mode coverage on CPU.
 
-The real kernel is exercised on TPU (see .claude/skills/verify); here the
-kernel logic (counter addressing inside tiles, lane-split contraction,
-accumulation) runs under the Pallas interpreter against the materialize
-oracle.
+The compiled kernel is exercised on the GPU (tests/test_gpu_hardware.py,
+run by chip_smoke.py); here the kernel logic (counter addressing inside
+tiles, lane-split contraction, split-K accumulation, padding) runs under
+the Pallas interpreter against the materialize oracle.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from randblas_tpu import DenseDist, DenseDistName, DenseSkOp, RNGState, Op
+from randblas_tpu import DenseDist, DenseDistName, DenseSkOp, RNGState
 from randblas_tpu.ops.fused_sketch import (
     fused_sketch, fused_sketch_supported,
 )
@@ -26,8 +26,6 @@ def test_fused_interpret_matches_materialize(family):
         np.random.default_rng(0).normal(size=(m, n)).astype(np.float32))
     got = np.asarray(fused_sketch(S, A, alpha=0.5, interpret=True))
     want = 0.5 * np.asarray(S.materialize()) @ np.asarray(A)
-    # kernel contracts in bf16 x bf16 -> f32 (like XLA's f32 GEMM on TPU);
-    # the CPU oracle matmul is true f32, so compare at bf16 input accuracy
     scale = np.abs(want).max()
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-2)
 
@@ -40,7 +38,6 @@ def test_fused_multi_panel_accumulation():
         np.random.default_rng(1).normal(size=(m, n)).astype(np.float32))
     got = np.asarray(fused_sketch(S, A, interpret=True))
     want = np.asarray(S.materialize()) @ np.asarray(A)
-    # bf16 contraction inside the kernel vs f32 oracle
     scale = np.abs(want).max()
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-2)
 
@@ -76,35 +73,33 @@ def test_fused_padded_shapes_interpret():
 
 def test_supported_predicate():
     g = DenseDist(64, 1024)
-    assert fused_sketch_supported(g, 64, 1024, 0, 0, Op.NoTrans,
-                                  jnp.float32)
-    # counter-aligned submatrices -> yes
-    assert fused_sketch_supported(g, 32, 512, 4, 256, Op.NoTrans,
-                                  jnp.float32)
-    # unaligned column offset -> yes (reduced to the aligned case by
-    # top-padding the data; round-2 coverage extension)
-    assert fused_sketch_supported(g, 32, 512, 0, 2, Op.NoTrans,
-                                  jnp.float32)
+    ok = lambda dist, r, c, ro, co, dt=jnp.float32, rng="philox4x32": \
+        fused_sketch_supported(dist, r, c, ro, co, dt, rng)  # noqa: E731
+    assert ok(g, 64, 1024, 0, 0)
+    # counter-aligned and unaligned submatrices -> yes
+    assert ok(g, 32, 512, 4, 256)
+    assert ok(g, 32, 512, 0, 2)
     # out of range -> no
-    assert not fused_sketch_supported(g, 64, 1024, 4, 0, Op.NoTrans,
-                                      jnp.float32)
-    # transposed -> no
-    assert not fused_sketch_supported(g, 1024, 64, 0, 0, Op.Trans,
-                                      jnp.float32)
-    # f64 -> no
-    assert not fused_sketch_supported(g, 64, 1024, 0, 0, Op.NoTrans,
-                                      jnp.float64)
-    # tall Long operator (natural ColMajor) -> no
-    tall = DenseDist(1024, 64)
-    assert not fused_sketch_supported(tall, 1024, 64, 0, 0, Op.NoTrans,
-                                      jnp.float32)
+    assert not ok(g, 64, 1024, 4, 0)
+    # f64 -> no; bf16 -> yes
+    assert not ok(g, 64, 1024, 0, 0, jnp.float64)
+    assert ok(g, 64, 1024, 0, 0, jnp.bfloat16)
+    # both natural layouts: tall Long (ColMajor natural) -> yes
+    assert ok(DenseDist(1024, 64), 1024, 64, 0, 0)
+    # only the 4x32 counter-based generators
+    assert ok(g, 64, 1024, 0, 0, rng="threefry4x32")
+    assert not ok(g, 64, 1024, 0, 0, rng="philox2x32")
+    assert not ok(DenseDist(64, 1024, DenseDistName.BlackBox), 64, 1024,
+                  0, 0)
 
-# ------------------------- Pallas fill kernel ------------------------------
+
+# --------------------- generator stream of the kernel -----------------------
 
 class TestPallasFill:
-    """pallas_fill_block vs the XLA fill: uint32-stream-identical by
-    construction; Uniform floats exact, Gaussian floats within the
-    documented ~1-ulp signed-view u01 tolerance (rng/transforms.py)."""
+    """The kernel's in-register generator against the XLA fill: a sketch
+    of the identity is the operator block itself. uint32 streams are
+    identical by construction; Uniform floats exact, Gaussian floats
+    within the ~1-ulp transcendental tolerance (rng/transforms.py)."""
 
     @pytest.mark.parametrize("shape,ma", [
         ((64, 256), None),            # wide + Long: RowMajor natural
@@ -115,15 +110,16 @@ class TestPallasFill:
     @pytest.mark.slow
     def test_block_matches_xla_fill(self, shape, ma, fam):
         from randblas_tpu.dense import fill_dense_submat
-        from randblas_tpu.ops import fused_sketch as fs
         R, C = shape
         dist = (DenseDist(R, C, fam) if ma is None
                 else DenseDist(R, C, fam, ma))
         S = DenseSkOp(dist, RNGState.from_key(5))
         for (rs, cs, ro, co) in [(R, C, 0, 0), (32, 48, 8, 13),
                                  (17, 33, 3, 2)]:
-            got = np.asarray(fs.pallas_fill_block(S, rs, cs, ro, co,
-                                                  interpret=True))
+            eye = jnp.eye(cs, dtype=jnp.float32)
+            got = np.asarray(fused_sketch(S, eye, interpret=True,
+                                          rows_s=rs, cols_s=cs, ro_s=ro,
+                                          co_s=co))
             want = np.asarray(fill_dense_submat(dist, S.seed_state, rs,
                                                 cs, ro, co))
             if fam == DenseDistName.Uniform:
@@ -132,21 +128,20 @@ class TestPallasFill:
                 np.testing.assert_allclose(got, want, rtol=1e-6,
                                            atol=1e-6)
 
-    def test_staged_dispatch_uses_pallas_fill(self):
-        """use_pallas_fill=True routes _dense_block through the kernel
-        (interpret mode off-TPU) and the sketch matches the XLA-staged
-        result within the fill tolerance."""
+    def test_staged_dispatch_matches_kernel(self):
+        """use_fused=False (the staged XLA fill + GEMM) and the forced
+        kernel agree on the same sketch."""
         import randblas_tpu.skge as skge
         from randblas_tpu import sketch_general
         d, m, n = 24, 96, 16
         S = DenseSkOp(DenseDist(d, m), RNGState.from_key(9))
         A = jnp.asarray(np.random.default_rng(0).normal(
             size=(m, n)).astype(np.float32))
-        want = np.asarray(sketch_general(S, A))
-        old = skge.use_pallas_fill
+        old = skge.use_fused
         try:
-            skge.use_pallas_fill = True
-            got = np.asarray(sketch_general(S, A))
+            skge.use_fused = False
+            want = np.asarray(sketch_general(S, A))
         finally:
-            skge.use_pallas_fill = old
+            skge.use_fused = old
+        got = np.asarray(fused_sketch(S, A, interpret=True))
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -53,13 +53,23 @@ def test_sketch_with_threefry_operator():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
-def test_threefry_never_hits_philox_kernel():
-    """The fused Pallas kernel hardcodes Philox4x32; a non-Philox operator
-    must never be dispatched to it (would silently change the stream)."""
+def test_threefry_never_hits_philox_kernel(monkeypatch):
+    """The RNG-in-GEMM kernel generates only the 4x32 counter-based
+    streams; a 2x32 operator must never be dispatched to it (that would
+    silently change the stream), even where the GPU rule takes it."""
     import jax.numpy as jnp
+    import randblas_tpu as rb
     from randblas_tpu.base import Op
-    from randblas_tpu.skge import _fused_eligible
+    from randblas_tpu.ops import fused_sketch as fs
+    from randblas_tpu.skge import _fused_or_none
 
-    S = DenseSkOp(DenseDist(64, 1024),
-                  RNGState.from_key(1, rng="threefry4x32"))
-    assert not _fused_eligible(S, 64, 1024, 0, 0, Op.NoTrans, jnp.float32)
+    monkeypatch.setattr(rb.backend, "platform", lambda: "gpu")
+    monkeypatch.setattr(fs, "fused_sketch", lambda *a, **k: "kernel")
+    d, m, n = 64, 1 << 18, 8
+    a = jnp.zeros((m, n), jnp.float32)
+    for rng, routed in (("philox2x32", False), ("threefry2x32", False),
+                        ("threefry4x32", True), ("philox4x32", True)):
+        S = DenseSkOp(DenseDist(d, m), RNGState.from_key(1, rng=rng))
+        got = _fused_or_none(S, a, d, m, 0, 0, Op.NoTrans, jnp.float32,
+                             1.0)
+        assert (got == "kernel") is routed, rng

@@ -167,7 +167,7 @@ class TestBlockGaussSeidel:
 
 
 class TestGaussSeidelShuffle:
-    """The TPU-native 'shuffle' sampling mode (default): permuted
+    """The 'shuffle' sampling mode (default): permuted
     contiguous panels instead of iid index gathers."""
 
     def test_is_the_default_and_converges(self):

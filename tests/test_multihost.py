@@ -130,7 +130,7 @@ def test_live_two_process_distributed_sketch():
     """LIVE multi-process run — not a mock: two OS processes, each with
     its own 2-device virtual CPU backend, jax.distributed over a
     localhost coordinator, cross-process psum through XLA's gloo CPU
-    collectives (the same collective machinery a DCN-connected pod
+    collectives (the same collective machinery a multi-host cluster
     uses, modulo transport). Each worker builds the process-contiguous
     mesh, runs distributed_sketch (aligned + pad-and-shard), and
     oracle-checks its addressable shards.

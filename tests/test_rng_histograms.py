@@ -13,7 +13,7 @@ The pinned x32 values agree with the reference's refmap (test_r123.cc:
 607-625) because the uint32 streams are bit-identical (KAT-verified) and
 the u01-family maps are exact float arithmetic — matching them here is
 itself a cross-implementation check. The x64 rows run through the native
-host engine's 64-bit CBRNGs (TPU has no 64-bit lanes).
+host engine's 64-bit CBRNGs (JAX runs without x64 mode).
 """
 
 import numpy as np

@@ -207,7 +207,7 @@ def _parse_kat_file(path):
     """Returns (x32_vectors, x64_vectors) parsed from the upstream file.
 
     x32 vectors replay through the JAX generators; x64 vectors (the
-    Random123 2x64/4x64 variants — TPU has no 64-bit integer lanes) replay
+    Random123 2x64/4x64 variants, which need 64-bit integer arithmetic) replay
     through the native host engine's implementations instead.
     """
     import os
@@ -266,8 +266,8 @@ def _hex_words64(s):
 def test_kat_x64_native_replay():
     """Replay every 64-bit vector through the native host engine.
 
-    The 2x64/4x64 CBRNGs have no TPU-side implementation (no 64-bit
-    integer lanes on the VPU); the native C++ engine carries them so the
+    The 2x64/4x64 CBRNGs have no device-side implementation (they need
+    64-bit integer arithmetic); the native C++ engine carries them so the
     full Random123 surface of the reference stays covered.
     """
     from randblas_tpu import native

@@ -117,8 +117,8 @@ def test_validation():
 def test_qr_clipped_lstsq_matches_lstsq_and_clips():
     """qr_clipped_lstsq == jnp.linalg.lstsq on full-rank systems; on
     zero/dependent columns it zeroes those coefficients instead of
-    pinv-ing (the TPU-safe replacement — lstsq's SVD route SIGABRTs the
-    TPU compiler at the sgmres shapes, test_tpu_hardware.py r4)."""
+    pinv-ing (the damped-QR replacement used on the sketched-solve
+    paths)."""
     from randblas_tpu.linalg.qb import qr_clipped_lstsq
     rng = np.random.default_rng(9)
     a = jnp.asarray(rng.normal(size=(40, 7)).astype(np.float32))

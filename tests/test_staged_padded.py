@@ -1,10 +1,7 @@
 """Row-aligned fill generation + the TN high-precision GEMM.
 
-Round-3 perf fix (BENCH_LOCAL.md): on v5e, a fill whose generated array
-has a row (sublane) count not divisible by 8 runs ~9x slower end to end
-(honest matmul-consumer measurement, benchmarks/cfg1_probe7.py), so
-fill_rowmajor generates a sublane-aligned row count and slices the
-phantom rows off. These tests pin that the padding is value-invisible,
+fill_rowmajor generates a row count rounded up to a multiple of 8 and
+slices the phantom rows off. These tests pin that the padding is value-invisible,
 and that matmul_hiprec's transpose_a path (TN contraction for natural-
 orientation operands) is exact.
 """

@@ -200,21 +200,3 @@ def test_subspace_embedding_distortion_laso():
                                    alpha=scale))
     sv = np.linalg.svd(SU, compute_uv=False)
     assert sv.max() < 1.5 and sv.min() > 0.5, (sv.max(), sv.min())
-
-
-def test_ks_gaussian_fast_trig():
-    """The fused kernel's polynomial sincospi Box-Muller
-    (boxmul_pair_i32 fast_cos=True) passes the same KS test as the
-    exact-trig path, and agrees with it to ~1 ulp."""
-    from randblas_tpu.rng.transforms import boxmul_pair_i32
-    rng = np.random.default_rng(42)
-    n = 1 << 17
-    se = jnp.asarray(rng.integers(-2**31, 2**31, size=n, dtype=np.int32))
-    so = jnp.asarray(rng.integers(-2**31, 2**31, size=n, dtype=np.int32))
-    a, b = boxmul_pair_i32(se, so, fast_cos=True)
-    samples = np.concatenate([np.asarray(a), np.asarray(b)])
-    stat = st.kstest(samples, "norm").statistic
-    assert stat < ks_threshold(samples.size)
-    a0, b0 = boxmul_pair_i32(se, so)
-    assert float(jnp.max(jnp.abs(a - a0))) < 2e-6
-    assert float(jnp.max(jnp.abs(b - b0))) < 2e-6
